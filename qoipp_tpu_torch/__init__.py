@@ -1,0 +1,47 @@
+"""qoipp_tpu_torch — the QOI batch codec in PyTorch, with hand-written CUDA
+kernels for Hopper (sm_90a).
+
+The port of ``qoipp_tpu``'s main path (``BatchPipeline``): the same module
+names, the same public shapes, bit-exact output.  The JAX-free host layer
+(``Desc``, ``Channels``, headers, the native oracle) is shared with
+``qoipp_tpu``, never copied; this package imports ``torch`` and never
+``jax``.
+
+Pixel words travel as ``torch.int32`` tensors holding the uint32 bit
+pattern ``r | g<<8 | b<<16 | a<<24`` (torch lacks most uint32 arithmetic);
+``qoipp_tpu_torch.convert`` moves words and replay carries to and from the
+uint32 numpy arrays the JAX package uses.
+"""
+
+from qoipp_tpu.common import (
+    END_MARKER,
+    HEADER_SIZE,
+    Channels,
+    Colorspace,
+    Desc,
+    worst_size,
+    write_header,
+)
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # the pipeline pulls in torch; load it on first use
+    if name == "BatchPipeline":
+        from .models.pipeline import BatchPipeline
+
+        return BatchPipeline
+    raise AttributeError(name)
+
+
+__all__ = [
+    "BatchPipeline",
+    "Channels",
+    "Colorspace",
+    "Desc",
+    "END_MARKER",
+    "HEADER_SIZE",
+    "worst_size",
+    "write_header",
+]

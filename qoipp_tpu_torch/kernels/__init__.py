@@ -1,0 +1,142 @@
+"""Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
+
+The four kernels of the main path live in ``qoipp_tpu_torch/csrc`` as CUDA
+C++ for sm_90a behind a plain C interface.  On first use they are built
+with ``nvcc`` into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the
+root of the checkout (rebuilt whenever a source is newer than the
+library) and loaded with ctypes.  Nothing here runs when the module is
+imported, so the CPU-only test suite can import it.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()`` after its launch; ``launch`` raises on a
+non-zero status and only then counts the launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
+LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
+SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# kernel name -> launches since the last reset_launch_counts()
+LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    # meta, val, prev_in, seen_in, emits, prev_out, seen_out, C, B, stream
+    "qk_replay": [_P] * 7 + [_L, _I, _P],
+    # pb, emits, out, B, Q, n_cap, stream
+    "qk_place_fill": [_P, _P, _P, _I, _L, _L, _P],
+    # keep, gidx, nplanes, in0..in3, out0..out3, B, N, cap, stream
+    "qk_compact": [_P, _P, _I] + [_P] * 8 + [_I, _L, _L, _P],
+    # off, tlo, thn, out, B, C, out_cap, stream
+    "qk_emit": [_P] * 4 + [_I, _L, _L, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under CUDA_HOME")
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh"))
+
+
+def build(verbose: bool = False) -> str:
+    """Compile the kernels if the library is missing or stale.  Returns the
+    compiler's output (with ``verbose``, ptxas' register and spill report);
+    raises RuntimeError if nvcc fails."""
+    if not _stale() and not verbose:
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".libqoipp_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)  # atomic: no process loads half a library
+    return proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.qk_error_string.argtypes = [ctypes.c_int]
+            lib.qk_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+    """Launch C entry point ``entry`` on ``device``'s current stream (args
+    exclude the stream), raise on a launch error, then count one launch of
+    ``kernel``."""
+    lib = library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} "
+                           f"({lib.qk_error_string(rc).decode()})")
+    LAUNCHES[kernel] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise ValueError unless t is a contiguous ``dtype`` tensor of
+    ``shape`` on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,132 @@
+"""Each CUDA kernel against its plain PyTorch version, on edge cases.
+
+``check(name, device)`` runs kernel ``name``'s wrapper and its plain
+version on the same seeded inputs on ``device`` and returns the largest
+absolute difference (as uint32 values or bytes) over every case; 0 means
+bit-exact.  The cases:
+
+  replay:     the crafted INDEX-53 first chunk, random rows of every class
+              with rst bits, a random non-initial carry, a C that is not a
+              multiple of the kernel's row group;
+  place_fill: lanes whose offsets run past n_cap (rows with pb >= n_cap),
+              lanes that end inside it, a lane whose first offset is > 0;
+  compact:    empty, full and random keep masks, one to four planes;
+  emit:       encoder-shaped rows, a lane of 6-byte rows across every
+              8192-byte window edge and past out_cap.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import compact_kernel, emit_kernel, place_kernel, replay_kernel
+
+
+def _t(a, device):
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _words(rng, shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| reading int32 words as uint32 values."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    mask = 0xFFFFFFFF if a.dtype == torch.int32 else 0xFF
+    d = (a.to(torch.int64) & mask) - (b.to(torch.int64) & mask)
+    return int(d.abs().max())
+
+
+def _replay(device) -> int:
+    rng = np.random.default_rng(1)
+    err = 0
+    # crafted: a first chunk OP_INDEX 53 reads the seeded start pixel
+    meta = np.zeros((64, 3), np.uint32)
+    meta[0] = 4 | (53 << 3)
+    meta[1:, 1] = 1  # then SETA rows on lane 1
+    val = _words(rng, (64, 3))
+    m, v = _t(meta, device), _t(val, device)
+    err = max(err, max_abs_err(
+        replay_kernel.replay_batch(m, v),
+        replay_kernel.replay_batch_carry_reference(
+            m, v, *replay_kernel.initial_state(3, device))[0]))
+    # random rows of every class (6 and 7 included), rst bits, random carry
+    c, b = 1029, 40
+    cls = rng.integers(0, 8, (c, b))
+    arg = rng.integers(0, 64, (c, b))
+    rst = (rng.random((c, b)) < 0.01).astype(np.int64)
+    meta = (cls | (arg << 3) | (rst << 9)).astype(np.uint32)
+    args = [_t(x, device) for x in (meta, _words(rng, (c, b)),
+                                    _words(rng, (1, b)), _words(rng, (64, b)))]
+    got = replay_kernel.replay_batch_carry(*args)
+    want = replay_kernel.replay_batch_carry_reference(*args)
+    return max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+
+
+def _place_fill(device) -> int:
+    rng = np.random.default_rng(2)
+    b, q, n_cap = 5, 4096, 2 * place_kernel.WIN
+    start = rng.random((b, q)) < 0.6
+    start[:, 0] = True
+    scale = np.array([60, 60, 8, 3, 8])[:, None]  # lanes 0-1 pass n_cap
+    produced = np.where(start, np.minimum(rng.integers(1, 62, (b, q)),
+                                          scale), 0)
+    pb = np.cumsum(produced, axis=1) - produced
+    pb[4] += 100  # pixels before the first offset read 0
+    args = (_t(pb.astype(np.int32), device), _t(_words(rng, (b, q)), device))
+    return max_abs_err(place_kernel.place_fill(*args, n_cap),
+                       place_kernel.place_fill_reference(*args, n_cap))
+
+
+def _compact(device) -> int:
+    rng = np.random.default_rng(3)
+    err = 0
+    b, n, cap = 3, 5000, 5120
+    for nplanes, keep in ((2, np.zeros((b, n), bool)),
+                          (1, np.ones((b, n), bool)),
+                          (3, rng.random((b, n)) < 0.3),
+                          (4, rng.random((b, n)) < 0.9)):
+        planes = tuple(_t(_words(rng, (b, n)), device) for _ in range(nplanes))
+        tkeep = _t(keep, device)
+        got, counts = compact_kernel.compact_rows(planes, tkeep, cap)
+        want, wcounts = compact_kernel.compact_rows_reference(planes, tkeep,
+                                                              cap)
+        err = max(err, max_abs_err(counts, wcounts))
+        live = torch.arange(cap, device=device)[None, :] < counts[:, None]
+        for g, w in zip(got, want):  # rows past counts are unspecified
+            err = max(err, max_abs_err(torch.where(live, g, 0),
+                                       torch.where(live, w, 0)))
+    return err
+
+
+def _emit(device) -> int:
+    rng = np.random.default_rng(4)
+    b, c, out_cap = 4, 6000, 4 * emit_kernel.WIN
+    nbytes = np.zeros((b, c), np.int64)
+    for i in range(b):
+        cnt = c - 3 if i == 0 else int(rng.integers(c // 4, c - 3))
+        nbytes[i, :cnt] = 6 if i == 0 else rng.integers(1, 7, cnt)
+        nbytes[i, cnt : cnt + 3] = (6, int(rng.integers(2, 4)), 1)
+    off = (14 + np.cumsum(nbytes, axis=1) - nbytes).astype(np.int32)
+    thn = (_words(rng, (b, c)) & 0xFFFF) | (nbytes << 16)
+    args = (_t(off, device), _t(_words(rng, (b, c)), device),
+            _t(thn.astype(np.uint32), device))
+    return max_abs_err(emit_kernel.emit_bytes(*args, out_cap),
+                       emit_kernel.emit_bytes_reference(*args, out_cap))
+
+
+CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
+         "emit": _emit}
+
+
+def check(name: str, device) -> int:
+    """Max |kernel - plain| of kernel ``name`` over its edge cases."""
+    return CASES[name](torch.device(device))

@@ -1,0 +1,114 @@
+"""Parallel QOI chunk-boundary discovery (plain torch; no kernel).
+
+The same three-stage phase scan as ``qoipp_tpu.ops.boundary``: the phase
+phi(p) = (next chunk start >= p) - p lies in {0..4} and steps as
+
+    phi(p+1) = phi(p) - 1      if phi(p) > 0
+             = len(p) - 1      if phi(p) == 0   (p starts a chunk)
+
+A: each BLOCK-byte block's phase map {0..4} -> {0..4}, by a BLOCK-step loop
+   over a (B, 5, nblk) carry;
+B: the exclusive composition of the block maps, by log-doubling with
+   ``torch.gather`` (in place of ``associative_scan``);
+C: a second BLOCK-step loop replays every block from its entry phase.
+"""
+
+from __future__ import annotations
+
+import torch
+
+BLOCK = 128  # bytes per phase block
+
+
+def chunk_len_of(tags):
+    """Chunk byte length decided by the tag byte alone: INDEX/DIFF/RUN=1,
+    LUMA=2, RGB=4, RGBA=5 (uint8)."""
+    t = tags.to(torch.int32)
+    is_rgb = t == 0xFE
+    is_rgba = t == 0xFF
+    is_luma = ~is_rgb & ~is_rgba & ((t & 0xC0) == 0x80)
+    return (1 + is_luma.to(torch.int32) + 3 * is_rgb.to(torch.int32)
+            + 4 * is_rgba.to(torch.int32)).to(torch.uint8)
+
+
+def chunk_starts_batch(regions):
+    """regions: (B, Qb) uint8 chunk-region bytes (stream bytes from offset
+    14, zero-padded; Qb % BLOCK == 0).  Returns is_start: (B, Qb) bool.
+    Position 0 is by definition the first chunk start."""
+    b, qb = regions.shape
+    if qb % BLOCK:
+        raise ValueError(f"region width {qb} is not a multiple of {BLOCK}")
+    nblk = qb // BLOCK
+    lens = chunk_len_of(regions).reshape(b, nblk, BLOCK)
+    steps = lens - 1  # phase after a chunk start
+
+    # A: per-block phase maps, carry[b, j, k] = phase after block k from j
+    ident = torch.arange(5, dtype=torch.uint8, device=regions.device)
+    carry = ident[None, :, None].expand(b, 5, nblk).clone()
+    for t in range(BLOCK):
+        carry = torch.where(carry > 0, carry - 1, steps[:, None, :, t])
+
+    # B: inclusive composition by log-doubling (apply block k-d's span,
+    # then block k's: S_k[S_{k-d}[j]]), then shift to exclusive
+    inc = carry.to(torch.int64)
+    d = 1
+    while d < nblk:
+        inc = torch.cat(
+            [inc[:, :, :d], torch.gather(inc[:, :, d:], 1, inc[:, :, :-d])],
+            dim=2,
+        )
+        d *= 2
+    entry = torch.cat(
+        [torch.zeros((b, 1), dtype=torch.uint8, device=regions.device),
+         inc[:, 0, :-1].to(torch.uint8)],
+        dim=1,
+    )  # the chain enters block 0 with phi = 0
+
+    # C: replay every block from its entry phase
+    phases = torch.empty((b, nblk, BLOCK), dtype=torch.uint8,
+                         device=regions.device)
+    phi = entry
+    for t in range(BLOCK):
+        phases[:, :, t] = phi
+        phi = torch.where(phi > 0, phi - 1, steps[:, :, t])
+    return phases.reshape(b, qb) == 0
+
+
+def analyze_region_batch(regions, chunks_sizes, n_px: int):
+    """Batched boundary analysis.
+
+    regions:      (B, Qb) uint8, stream bytes from offset 14, zero-extended.
+    chunks_sizes: (B,) int, real chunk-region byte counts (stream size - 22;
+                  the reference's loop bound).
+    n_px:         pixels each image owes.
+
+    Returns a dict of (B, Qb) arrays — real (a chunk the reference would
+    decode: data left OR pixels owed), produced (pixels it emits), and
+    pix_before (int32 exclusive prefix sum of produced) — plus the (B,)
+    totals total_chunks and total_pixels.
+    """
+    b, qb = regions.shape
+    q = torch.arange(qb, dtype=torch.int32, device=regions.device)[None, :]
+    is_start = chunk_starts_batch(regions)
+
+    tag = regions.to(torch.int32)
+    # 0xFE/0xFF are RGB/RGBA, not RUN
+    is_run = ((tag & 0xC0) == 0xC0) & (tag != 0xFE) & (tag != 0xFF)
+    produced_raw = torch.where(is_run, (tag & 0x3F) + 1, 1)
+
+    produced0 = torch.where(is_start, produced_raw, 0)
+    pix_before0 = torch.cumsum(produced0, dim=1, dtype=torch.int32) - produced0
+
+    sizes = torch.as_tensor(chunks_sizes, device=regions.device)
+    real = is_start & ((q < sizes.to(torch.int32)[:, None])
+                       | (pix_before0 < n_px))
+    produced = torch.where(real, produced_raw, 0)
+    pix_before = torch.cumsum(produced, dim=1, dtype=torch.int32) - produced
+
+    return {
+        "real": real,
+        "produced": produced,
+        "pix_before": pix_before,
+        "total_chunks": real.sum(dim=1, dtype=torch.int32),
+        "total_pixels": produced.sum(dim=1, dtype=torch.int32),
+    }

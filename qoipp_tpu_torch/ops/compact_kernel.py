@@ -1,0 +1,66 @@
+"""K3: stable compaction of kept rows (CUDA kernel csrc/compact.cu).
+
+  out[p][b, gidx[b, r]] = plane[p][b, r]   for every kept row r,
+  gidx = exclusive running count of kept rows (torch.cumsum, outside the
+         kernel, as in the JAX package)
+
+Rows at or past counts[b] are unspecified; mask them downstream.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+# The JAX kernel's rows per grid step.  The encoder's chunk_cap and `ok`
+# rule are written in it, so it stays to keep those shapes and flags equal.
+BLK = 2048
+MAX_PLANES = 4
+
+
+def _gidx_counts(keep):
+    incl = torch.cumsum(keep, dim=1, dtype=torch.int32)
+    return incl - keep.to(torch.int32), incl[:, -1]
+
+
+def compact_rows_reference(planes, keep, cap: int):
+    """Plain version of K3: cumsum + scatter_."""
+    b, _ = keep.shape
+    gidx, counts = _gidx_counts(keep)
+    idx = torch.where(keep & (gidx < cap), gidx, cap).to(torch.int64)
+    outs = []
+    for p in planes:
+        out = torch.zeros((b, cap + 1), dtype=p.dtype, device=p.device)
+        out.scatter_(1, idx, p)  # dropped rows all land in column cap
+        outs.append(out[:, :cap])
+    return tuple(outs), counts
+
+
+def compact_rows(planes, keep, cap: int):
+    """Compact the kept rows of up to four (B, N) int32 planes to the front.
+
+    planes: tuple of (B, N) int32; keep: (B, N) bool; cap: output width (a
+    lane whose count exceeds cap keeps its first cap rows).
+    Returns (tuple of (B, cap) int32, counts (B,) int32).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if keep.device.type == "cpu":
+        return compact_rows_reference(planes, keep, cap)
+    b, n = keep.shape
+    dev = keep.device
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"1..{MAX_PLANES} planes, got {len(planes)}")
+    kernels.check(keep, "keep", torch.bool, (b, n), dev)
+    for i, p in enumerate(planes):
+        kernels.check(p, f"planes[{i}]", torch.int32, (b, n), dev)
+    gidx, counts = _gidx_counts(keep)
+    outs = tuple(torch.empty((b, cap), dtype=torch.int32, device=dev)
+                 for _ in planes)
+    if b and n and cap:
+        pad = [0] * (MAX_PLANES - len(planes))
+        kernels.launch(
+            "compact", "qk_compact", dev, keep.data_ptr(), gidx.data_ptr(),
+            len(planes), *[p.data_ptr() for p in planes], *pad,
+            *[o.data_ptr() for o in outs], *pad, b, n, cap)
+    return outs, counts

@@ -1,0 +1,239 @@
+"""Parallel QOI encoder: the compact-first pipeline of
+``qoipp_tpu.ops.encode._encode_kernel_impl``.
+
+After the encoder processes a differing pixel p, table slot hash(p) holds
+p whatever op was emitted, and run pixels never touch the table; so the
+table, and with it every op decision, is a pure function of the pixel
+sequence.  Four stages:
+
+1. chunk positions (``chunk_positions``): differing pixels and RUN-62 flush
+   points, by one cummax over (B, Nb);
+2. K3 compacts (pixel, position|flag) to those rows;
+3. ``chunk_templates``: the same-hash predecessor, op selection and the
+   6-byte template of every chunk row, plus the trailing run, end marker
+   and sentinel rows and the byte offsets;
+4. K4 writes the byte stream.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bitops import START_PIXEL_PACKED, hash6, to_int8, unpack_channel
+from .compact_kernel import BLK as CBLK
+from .compact_kernel import compact_rows
+from .emit_kernel import WIN as EMIT_WIN
+from .emit_kernel import emit_bytes
+
+TILE = 64  # nb granularity, kept so encode shapes match the JAX package
+
+TAG_RGB = 0xFE
+TAG_RGBA = 0xFF
+TAG_INDEX = 0x00
+TAG_DIFF = 0x40
+TAG_LUMA = 0x80
+TAG_RUN = 0xC0
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pad_to_tile(n: int) -> int:
+    return _round_up(n, TILE)
+
+
+def _last_same_hash_value(packed, h, noneq):
+    """For each position i of each row: the word of the most recent j < i
+    with noneq[j] and h[j] == h[i], or 0 (the encoder's zero-initialised
+    table) when there is none.
+
+    packed/h/noneq: (B, N) or (N,).  A stable sort of each row by hash puts
+    every hash's positions in order, so a position's predecessor is the
+    last noneq entry before it inside its hash group."""
+    if packed.dim() == 1:
+        return _last_same_hash_value(packed[None], h[None], noneq[None])[0]
+    n = packed.shape[1]
+    order = torch.sort(h.to(torch.int64), dim=1, stable=True).indices
+    sh = torch.gather(h, 1, order)
+    sne = torch.gather(noneq, 1, order)
+    j = torch.arange(n, device=packed.device).expand_as(order)
+    # last noneq sorted index strictly before j, and the start of j's group
+    cand = torch.where(sne, j, -1)
+    last = torch.cummax(torch.cat([torch.full_like(cand[:, :1], -1),
+                                   cand[:, :-1]], dim=1), dim=1).values
+    new_group = torch.cat([torch.ones_like(sne[:, :1]),
+                           sh[:, 1:] != sh[:, :-1]], dim=1)
+    group_start = torch.cummax(torch.where(new_group, j, 0), dim=1).values
+    found = last >= group_start
+    pred = torch.gather(torch.gather(packed, 1, order), 1, last.clamp(min=0))
+    return torch.empty_like(packed).scatter_(1, order,
+                                             torch.where(found, pred, 0))
+
+
+def chunk_positions(packed, n_px: int):
+    """Stage 1.  packed (B, Nb) int32 -> (posflag, keep, fb): keep marks
+    chunk rows (differing pixels and RUN-62 flush points); posflag holds
+    the position with bit fb set on differing pixels."""
+    b, nb = packed.shape
+    idx = torch.arange(nb, dtype=torch.int32, device=packed.device).expand(b, nb)
+    valid = idx < n_px
+    prev = torch.cat(
+        [torch.full((b, 1), START_PIXEL_PACKED, dtype=torch.int32,
+                    device=packed.device), packed[:, :-1]], dim=1)
+    eq_raw = packed == prev
+    noneq = valid & ~eq_raw
+    last_noneq = torch.cummax(torch.where(noneq, idx, -1), dim=1).values
+    cnt = idx - last_noneq
+    hit62 = eq_raw & valid & (cnt % 62 == 0)  # run-limit flush (RUN 62)
+    keep = noneq | hit62
+    fb = 21 if nb <= 1 << 21 else 30
+    posflag = idx | (noneq.to(torch.int32) << fb)
+    return posflag, keep, fb
+
+
+def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int):
+    """Stage 3.  Compacted chunk rows (pixel, position|flag), (B, chunk_cap)
+    int32, and their counts -> (off, tlo, thn, total_len): per-row byte
+    offsets and 6-byte templates (thn bits 16+ hold the byte count), with
+    the trailing run, end marker and a 1-byte sentinel appended at counts,
+    and each stream's length (sentinel excluded)."""
+    b, chunk_cap = pk_c.shape
+    dev = pk_c.device
+    rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    pf_c = torch.where(valid_c, pf_c, 0)
+    pos = pf_c & ((1 << fb) - 1)
+    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
+
+    # a chunk's prev pixel is the previous chunk row's pixel (run interiors
+    # repeat it); the pending run length is the position gap
+    prev_c = torch.cat([torch.full((b, 1), START_PIXEL_PACKED,
+                                   dtype=torch.int32, device=dev),
+                        pk_c[:, :-1]], dim=1)
+    pos_prev = torch.cat([torch.full((b, 1), -1, dtype=torch.int32,
+                                     device=dev), pos[:, :-1]], dim=1)
+    gap = torch.where(valid_c, pos - pos_prev - 1, 0)
+
+    h = hash6(pk_c)
+    table_val = _last_same_hash_value(pk_c, h, nq_c)
+    is_index = nq_c & (table_val == pk_c)
+
+    a_cur = unpack_channel(pk_c, 3)
+    if channels == 4:
+        is_rgba = nq_c & ~is_index & (a_cur != unpack_channel(prev_c, 3))
+    else:
+        is_rgba = torch.zeros_like(nq_c)
+
+    dr = to_int8(unpack_channel(pk_c, 0) - unpack_channel(prev_c, 0))
+    dg = to_int8(unpack_channel(pk_c, 1) - unpack_channel(prev_c, 1))
+    db = to_int8(unpack_channel(pk_c, 2) - unpack_channel(prev_c, 2))
+    dr_dg = to_int8(dr - dg)
+    db_dg = to_int8(db - dg)
+    in_diff = ((dr >= -2) & (dr <= 1) & (dg >= -2) & (dg <= 1)
+               & (db >= -2) & (db <= 1))
+    in_luma = ((dg >= -32) & (dg <= 31) & (dr_dg >= -8) & (dr_dg <= 7)
+               & (db_dg >= -8) & (db_dg <= 7))
+    rest = nq_c & ~is_index & ~is_rgba
+    is_diff = rest & in_diff
+    is_luma = rest & ~in_diff & in_luma
+    is_rgb = rest & ~in_diff & ~in_luma
+    own_len = torch.where(
+        is_index, 1, torch.where(
+            is_rgba, 5, torch.where(
+                is_diff, 1, torch.where(is_luma, 2,
+                                        torch.where(is_rgb, 4, 0))))
+    ).to(torch.int32)
+
+    r8, g8, b8 = (unpack_channel(pk_c, c) for c in range(3))
+    diff_byte = TAG_DIFF | ((dr + 2) << 4) | ((dg + 2) << 2) | (db + 2)
+    luma0 = TAG_LUMA | (dg + 32)
+    luma1 = ((dr_dg + 8) << 4) | (db_dg + 8)
+    o0 = torch.where(
+        is_index, h, torch.where(
+            is_rgba, TAG_RGBA, torch.where(
+                is_diff, diff_byte, torch.where(
+                    is_luma, luma0, torch.where(is_rgb, TAG_RGB, 0))))
+    ).to(torch.int32)
+    rgbx = is_rgba | is_rgb
+    o1 = torch.where(rgbx, r8, torch.where(is_luma, luma1, 0))
+    o2 = torch.where(rgbx, g8, 0)
+    o3 = torch.where(rgbx, b8, 0)
+    o4 = torch.where(is_rgba, a_cur, 0)
+
+    # a differing chunk flushes its pending run first (gap in [1, 61]); a
+    # flush row IS the run (RUN 62: 61 equal pixels strictly before it)
+    run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
+    has_run = torch.where(nq_c, gap > 0, valid_c)
+    bytes6 = [torch.where(has_run, hi, lo) for hi, lo in
+              zip((run_byte, o0, o1, o2, o3, o4), (o0, o1, o2, o3, o4, 0))]
+    nbytes_c = own_len + has_run.to(torch.int32)
+    tlo = bytes6[0] | (bytes6[1] << 8) | (bytes6[2] << 16) | (bytes6[3] << 24)
+    thn = bytes6[4] | (bytes6[5] << 8) | (nbytes_c << 16)
+
+    # trailing run + end marker ride in as two appended rows; a third
+    # 1-byte sentinel row keeps the last of them a covered row in K4
+    last_pos = torch.where(valid_c, pos, -1).amax(dim=1)
+    trailing = (n_px - 1 - last_pos).clamp(min=0)
+    has_trail = (trailing > 0).to(torch.int32)
+    trail_byte = TAG_RUN | ((trailing - 1) & 0x3F)
+    # with a trail: [run, 0 x7, 1]; without: [0 x7, 1, 0]
+    row1_tlo = torch.where(has_trail == 1, trail_byte, 0)
+    row1_thn = torch.full_like(row1_tlo, 6 << 16)
+    row2_tlo = torch.where(has_trail == 1, 1 << 16, 1 << 8).to(torch.int32)
+    row2_thn = (2 + has_trail) << 16
+    app_tlo = torch.stack([row1_tlo, row2_tlo, torch.zeros_like(row1_tlo)], 1)
+    app_thn = torch.stack([row1_thn, row2_thn,
+                           torch.full_like(row1_thn, 1 << 16)], 1)
+    # at counts, clamped into the row range as dynamic_update_slice clamps
+    at = (counts.clamp(max=chunk_cap - 3)[:, None]
+          + torch.arange(3, device=dev)[None, :]).to(torch.int64)
+    tlo = tlo.scatter(1, at, app_tlo)
+    thn = thn.scatter(1, at, app_thn)
+
+    nb_c = ((thn >> 16) & 0xFFFF).to(torch.int64)
+    incl = torch.cumsum(nb_c, dim=1)
+    off = (14 + incl - nb_c).to(torch.int32)
+    total_len = (14 + incl[:, -1] - 1).to(torch.int32)  # sentinel excluded
+    return off, tlo, thn, total_len
+
+
+def _encode_kernel_impl(packed, n_px: int, header, channels: int,
+                        chunk_cap: int, out_cap: int):
+    """packed (B, Nb) int32 -> ((B, out_cap) uint8 streams, (B,) int32
+    lengths, (B,) bool ok)."""
+    posflag, keep, fb = chunk_positions(packed, n_px)
+    (pk_c, pf_c), counts = compact_rows((packed, posflag), keep, cap=chunk_cap)
+    off, tlo, thn, total_len = chunk_templates(pk_c, pf_c, counts, n_px, fb,
+                                               channels)
+    out = emit_bytes(off, tlo, thn, out_cap)
+    out[:, :14] = header
+    col = torch.arange(out_cap, dtype=torch.int32, device=out.device)[None, :]
+    out = torch.where(col < total_len[:, None], out, 0)
+    ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
+    return out, total_len, ok
+
+
+def encode_caps(nb: int, channels: int, chunk_cap: int | None = None,
+                out_cap: int | None = None):
+    """The JAX package's (chunk_cap, out_cap) rounding: chunk_cap defaults
+    to a bound safe for any input, out_cap to the worst stream size."""
+    if chunk_cap is None:
+        chunk_cap = nb + CBLK + 256
+    chunk_cap = _round_up(max(chunk_cap, CBLK + 256), 128)
+    if out_cap is None:
+        out_cap = (channels + 1) * nb + 14 + 8 + 9
+    return chunk_cap, _round_up(out_cap, EMIT_WIN)
+
+
+def encode_batch_checked(packed, n_px: int, header, channels: int, *,
+                         chunk_cap: int | None = None,
+                         out_cap: int | None = None):
+    """Batched encode -> ((B, out_cap) uint8, (B,) int32 lengths, (B,) bool
+    ok).  With the default caps ok is always True; an image flagged not ok
+    overflowed a tighter cap and must be encoded again with a larger one."""
+    chunk_cap, out_cap = encode_caps(packed.shape[1], channels, chunk_cap,
+                                     out_cap)
+    return _encode_kernel_impl(packed, n_px, header, channels, chunk_cap,
+                               out_cap)

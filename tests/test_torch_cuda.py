@@ -1,0 +1,65 @@
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
+chip_smoke.py's phase 2), and the pipeline at a small size against the
+oracle.  Without a CUDA device every test here skips.
+
+Run on a GPU machine: python -m pytest tests/test_torch_cuda.py -q"""
+
+import numpy as np
+import pytest
+import torch
+
+from qoipp_tpu_torch import kernels
+from qoipp_tpu_torch.kernels import selfcheck
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    # decided per test, never at collection: every worker collects the same
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", sorted(selfcheck.CASES))
+def test_kernel_matches_plain_version(cuda, name):
+    before = kernels.launch_counts()[name]
+    assert selfcheck.check(name, cuda) == 0
+    assert kernels.launch_counts()[name] > before
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_pipeline_on_card_matches_oracle(cuda, channels):
+    from bench import make_corpus
+    from qoipp_tpu import oracle
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+    from qoipp_tpu_torch.ops.bitops import pixels_to_packed
+
+    desc, raws, blobs = make_corpus(4, 96, 64, seed=channels,
+                                    channels=channels)
+    ml = max(b.size for b in blobs)
+    pipe = BatchPipeline(desc, max_stream_len=ml, max_encode_len=ml + 4096,
+                         device=cuda)
+    packed = pipe.decode_packed(*pipe.pack_streams(blobs))
+    assert packed.device.type == "cuda"
+    want = np.stack([oracle.decode(b, desc, desc.channels) for b in blobs])
+    want = pixels_to_packed(torch.from_numpy(want).to(cuda), channels)
+    assert torch.equal(packed[:, : pipe.n_px], want)
+    out, lengths = pipe.encode(np.stack(raws))
+    for i, blob in enumerate(blobs):
+        assert int(lengths[i]) == blob.size
+        assert np.array_equal(out[i, : blob.size].cpu().numpy(), blob)
+
+
+def test_wrapper_rejects_bad_input(cuda):
+    from qoipp_tpu_torch.ops import place_kernel
+
+    pb = torch.zeros((2, 128), dtype=torch.int64, device=cuda)
+    emits = torch.zeros((2, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        place_kernel.place_fill(pb, emits, 8192)
+    with pytest.raises(ValueError, match="contiguous"):
+        place_kernel.place_fill(pb.to(torch.int32).T.contiguous().T, emits,
+                                8192)

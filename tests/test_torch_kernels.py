@@ -1,0 +1,153 @@
+"""The port's four kernel modules (K1 replay, K2 place+fill, K3 compact, K4
+emit) against the JAX package's Pallas kernels, bit-exact.  On CPU tensors
+each wrapper takes its kernel's plain version; the JAX side runs its Pallas
+kernels in interpret mode, as the JAX tests do."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qoipp_tpu.ops import compact_kernel as jck
+from qoipp_tpu.ops import emit_kernel as jek
+from qoipp_tpu.ops import place_kernel as jpk
+from qoipp_tpu.ops import replay_kernel as jrk
+from qoipp_tpu_torch import convert
+from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.ops import compact_kernel, emit_kernel, place_kernel
+from qoipp_tpu_torch.ops import replay_kernel
+
+torch.set_num_threads(1)
+
+
+def _words(rng, shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def _chunk_rows(rng, c, b, p_rst):
+    """Random (meta, val) rows: every class (and the unused 6, 7), any
+    arg, rst bits with probability p_rst."""
+    cls = rng.integers(0, 8, (c, b))
+    arg = rng.integers(0, 64, (c, b))
+    rst = rng.random((c, b)) < p_rst
+    meta = (cls | (arg << 3) | (rst.astype(np.int64) << 9)).astype(np.uint32)
+    return meta, _words(rng, (c, b))
+
+
+@pytest.mark.parametrize("seed,p_rst", [(0, 0.0), (1, 0.01)])
+def test_replay_batch_carry(seed, p_rst):
+    rng = np.random.default_rng(seed)
+    c, b = 1024, 8
+    meta, val = _chunk_rows(rng, c, b, p_rst)
+    prev, seen = _words(rng, (1, b)), _words(rng, (64, b))
+    want = jrk.replay_batch_carry(jnp.asarray(meta), jnp.asarray(val),
+                                  jnp.asarray(prev), jnp.asarray(seen))
+    tprev, tseen = convert.carry_from_jax(prev, seen)
+    got = replay_kernel.replay_batch_carry(words_to_torch(meta),
+                                           words_to_torch(val), tprev, tseen)
+    for w, g in zip(want, got):
+        assert np.array_equal(_np(w), words_to_numpy(g))
+    # the out-carry continues the replay exactly where the window ended
+    jp, js = convert.carry_to_jax(got[1], got[2])
+    assert np.array_equal(jp, _np(want[1])) and np.array_equal(js, _np(want[2]))
+
+
+def test_replay_initial_state_index53():
+    # a first chunk OP_INDEX 53 reads the seeded start pixel
+    meta = np.zeros((512, 2), np.uint32)
+    meta[0] = meta[1] = 4 | (53 << 3)
+    meta[2, 1] = 1  # SETA 0 on lane 1, then INDEX 0 reads it back
+    meta[3, 1] = 4
+    val = np.zeros((512, 2), np.uint32)
+    want = jrk.replay_batch(jnp.asarray(meta), jnp.asarray(val))
+    got = replay_kernel.replay_batch(words_to_torch(meta), words_to_torch(val))
+    assert np.array_equal(_np(want), words_to_numpy(got))
+    assert int(words_to_numpy(got)[0, 0]) == 0xFF000000
+
+
+def _pix_before(rng, b, q, mean_px):
+    """Boundary-pass-shaped offsets: exclusive prefix sums of per-row pixel
+    counts (0 on non-start rows, 1..62 on chunk starts)."""
+    start = rng.random((b, q)) < 0.6
+    start[:, 0] = True
+    produced = np.where(start, rng.integers(1, 2 * mean_px, (b, q)), 0)
+    produced = np.minimum(produced, 62)
+    return (np.cumsum(produced, axis=1) - produced).astype(np.int32)
+
+
+def test_place_fill():
+    rng = np.random.default_rng(5)
+    b, q, n_cap = 4, 1024, 2 * place_kernel.WIN
+    pb = np.concatenate([_pix_before(rng, 2, q, 30),  # overflows n_cap
+                         _pix_before(rng, 2, q, 4)])  # ends inside it
+    emits = _words(rng, (b, q))
+    want = jpk.place_fill(jnp.asarray(pb), jnp.asarray(emits),
+                          jpk.window_base_rows(jnp.asarray(pb), n_cap), n_cap)
+    got = place_kernel.place_fill(torch.from_numpy(pb), words_to_torch(emits),
+                                  n_cap)
+    assert got.shape == (b, n_cap)
+    assert (pb[:2, -1] >= n_cap).all() and (pb[2:, -1] < n_cap).all()
+    want, got = _np(want), words_to_numpy(got)
+    for i in range(b):
+        covered = min(int(pb[i, -1]) + 1, n_cap)
+        assert np.array_equal(want[i, :covered], got[i, :covered]), i
+
+
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.4, 1.0])
+def test_compact_rows(density):
+    rng = np.random.default_rng(int(density * 100))
+    b, n = 3, 2 * jck.BLK
+    keep = rng.random((b, n)) < density
+    planes = [_words(rng, (b, n)) for _ in range(2)]
+    cap = ((int(keep.sum(axis=1).max()) + jck.BLK + 256) // 128 + 1) * 128
+    jplanes = tuple(jnp.asarray(p) for p in planes)
+    want, wcounts = jck.compact_rows(jplanes, jnp.asarray(keep), cap=cap)
+    ref, rcounts = jck.compact_rows_reference(jplanes, jnp.asarray(keep), cap)
+    got, counts = compact_kernel.compact_rows(
+        tuple(words_to_torch(p) for p in planes), torch.from_numpy(keep), cap)
+    assert np.array_equal(counts.numpy(), _np(wcounts))
+    assert np.array_equal(counts.numpy(), _np(rcounts))
+    for w, r, g in zip(want, ref, got):
+        g = words_to_numpy(g)
+        for i in range(b):
+            c = int(counts[i])
+            assert np.array_equal(g[i, :c], _np(w)[i, :c])
+            assert np.array_equal(g[i, :c], _np(r)[i, :c])
+
+
+def _encoder_rows(rng, b, c, all_six_lane):
+    """Emit inputs shaped as the encoder builds them: chunk rows of 1..6
+    bytes, the 6/2-3/1-byte trailing, marker and sentinel rows at counts,
+    zero-byte padding after; templates carry nbytes << 16 in thn."""
+    nbytes = np.zeros((b, c), np.int64)
+    for i in range(b):
+        if i == all_six_lane:
+            cnt = c - 3
+            nbytes[i, :cnt] = 6
+        else:
+            cnt = int(rng.integers(c // 2, c - 3))
+            nbytes[i, :cnt] = rng.integers(1, 7, cnt)
+        nbytes[i, cnt : cnt + 3] = (6, int(rng.integers(2, 4)), 1)
+    tlo = _words(rng, (b, c))
+    thn = ((_words(rng, (b, c)) & 0xFFFF) | (nbytes << 16)).astype(np.uint32)
+    off = (14 + np.cumsum(nbytes, axis=1) - nbytes).astype(np.int32)
+    return off, tlo, thn
+
+
+def test_emit_bytes():
+    rng = np.random.default_rng(9)
+    b, c, out_cap = 3, 3072, 2 * emit_kernel.WIN
+    off, tlo, thn = _encoder_rows(rng, b, c, all_six_lane=2)
+    assert off[2].max() > out_cap  # 6-byte rows run past out_cap
+    want = jek.emit_bytes(jnp.asarray(off), jnp.asarray(tlo),
+                          jnp.asarray(thn),
+                          jek.window_base_rows(jnp.asarray(off), out_cap),
+                          out_cap)
+    got = emit_kernel.emit_bytes(torch.from_numpy(off), words_to_torch(tlo),
+                                 words_to_torch(thn), out_cap)
+    assert got.dtype == torch.uint8 and got.shape == (b, out_cap)
+    assert np.array_equal(_np(want).astype(np.uint8), got.numpy())

@@ -1,0 +1,158 @@
+"""The port's host passes (no kernel) against the JAX package, bit-exact:
+bitops, the boundary pass, the dense field pass, the encoder's same-hash
+predecessor, the carry conversion, and the port's freedom from JAX."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qoipp_tpu.ops import bitops as jbit
+from qoipp_tpu.ops import boundary as jbnd
+from qoipp_tpu.ops import decode as jdec
+from qoipp_tpu.ops import encode as jenc
+from qoipp_tpu_torch import convert
+from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.ops import bitops, boundary, decode, encode
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _words(rng, shape):
+    return rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _np(x):
+    return np.asarray(x)
+
+
+def test_bitops_words():
+    rng = np.random.default_rng(0)
+    x, y = _words(rng, 4096), _words(rng, 4096)
+    tx, ty = words_to_torch(x), words_to_torch(y)
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    assert np.array_equal(_np(jbit.hash6(jx)), bitops.hash6(tx).numpy())
+    assert np.array_equal(_np(jbit.swar_add_bytes(jx, jy)),
+                          words_to_numpy(bitops.swar_add_bytes(tx, ty)))
+    for c in range(4):
+        assert np.array_equal(_np(jbit.unpack_channel(jx, c)),
+                              bitops.unpack_channel(tx, c).numpy())
+    assert np.array_equal(_np(jbit.to_int8(jx)), bitops.to_int8(tx).numpy())
+    assert int(np.uint32(jbit.START_PIXEL_PACKED)) == int(
+        words_to_numpy(torch.tensor([bitops.START_PIXEL_PACKED]))[0])
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_pixels_packed_roundtrip(channels):
+    rng = np.random.default_rng(channels)
+    raw = rng.integers(0, 256, 300 * channels, dtype=np.uint8)
+    want = _np(jbit.pixels_to_packed(jnp.asarray(raw), channels))
+    got = bitops.pixels_to_packed(torch.from_numpy(raw), channels)
+    assert np.array_equal(want, words_to_numpy(got))
+    back = bitops.packed_to_pixels(got, channels).numpy()
+    assert np.array_equal(back, _np(jbit.packed_to_pixels(jnp.asarray(want),
+                                                          channels)))
+    assert np.array_equal(back, raw)
+
+
+def _regions(seed, b, qb):
+    """Adversarial chunk regions: uniform noise, tag-heavy bytes (RGB/RGBA
+    tags, RUN and LUMA bytes) and long zero tails."""
+    rng = np.random.default_rng(seed)
+    reg = rng.integers(0, 256, (b, qb + 8), dtype=np.uint8)
+    tags = np.array([0xFE, 0xFF, 0xC0, 0xFD, 0x80, 0xBF, 0x00, 0x40],
+                    np.uint8)
+    heavy = rng.random((b, qb + 8)) < 0.5
+    reg[heavy] = tags[rng.integers(0, tags.size, heavy.sum())]
+    reg[0, qb // 2 :] = 0  # zero tail: INDEX-0 chunks while pixels are owed
+    return reg
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_analyze_region_batch(seed):
+    b, qb = 4, 1024
+    reg = _regions(seed, b, qb)
+    rng = np.random.default_rng(100 + seed)
+    sizes = rng.integers(-8, qb, b).astype(np.int32)
+    n_px = int(rng.integers(1, 4 * qb))
+    want = jbnd.analyze_region_batch(jnp.asarray(reg[:, :qb]),
+                                     jnp.asarray(sizes), jnp.int32(n_px))
+    got = boundary.analyze_region_batch(torch.from_numpy(reg[:, :qb].copy()),
+                                        torch.from_numpy(sizes), n_px)
+    assert set(got) == set(want)
+    for k in want:
+        assert np.array_equal(_np(want[k]), got[k].numpy()), k
+
+
+def test_chunk_starts_single_block_and_many():
+    for qb in (boundary.BLOCK, 64 * boundary.BLOCK):
+        reg = _regions(7, 2, qb)[:, :qb]
+        want = jbnd.chunk_starts_batch(jnp.asarray(reg))
+        got = boundary.chunk_starts_batch(torch.from_numpy(reg.copy()))
+        assert np.array_equal(_np(want), got.numpy())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fields_dense_batch(seed):
+    b, qb = 3, 512
+    reg = _regions(seed, b, qb)
+    real = np.random.default_rng(seed).random((b, qb)) < 0.6
+    jm, jv = jdec.fields_dense_batch(jnp.asarray(reg), jnp.asarray(real))
+    tm, tv = decode.fields_dense_batch(torch.from_numpy(reg),
+                                       torch.from_numpy(real))
+    assert np.array_equal(_np(jm), words_to_numpy(tm))
+    assert np.array_equal(_np(jv), words_to_numpy(tv))
+
+
+@pytest.mark.parametrize("density", [0.0, 0.1, 0.7, 1.0])
+def test_last_same_hash_value(density):
+    b, n = 3, 512
+    rng = np.random.default_rng(int(density * 10))
+    palette = _words(rng, 40)
+    packed = palette[rng.integers(0, palette.size, (b, n))]
+    packed[0, :5] = 0  # zero pixels match the zero table
+    noneq = rng.random((b, n)) < density
+    h = _np(jbit.hash6(jnp.asarray(packed))).astype(np.int32)
+    want = jax.vmap(jenc._last_same_hash_value)(
+        jnp.asarray(packed), jnp.asarray(h), jnp.asarray(noneq))
+    got = encode._last_same_hash_value(words_to_torch(packed),
+                                       torch.from_numpy(h),
+                                       torch.from_numpy(noneq))
+    assert np.array_equal(_np(want), words_to_numpy(got))
+    one = encode._last_same_hash_value(words_to_torch(packed[1]),
+                                       torch.from_numpy(h[1]),
+                                       torch.from_numpy(noneq[1]))
+    assert np.array_equal(_np(want[1]), words_to_numpy(one))
+
+
+def test_carry_conversion_roundtrip():
+    rng = np.random.default_rng(3)
+    prev, seen = _words(rng, (1, 5)), _words(rng, (64, 5))
+    tp, ts = convert.carry_from_jax(prev, seen)
+    assert tp.dtype == ts.dtype == torch.int32
+    bp, bs = convert.carry_to_jax(tp, ts)
+    assert bp.dtype == np.uint32
+    assert np.array_equal(bp, prev) and np.array_equal(bs, seen)
+    with pytest.raises(ValueError):
+        convert.carry_from_jax(seen, prev)
+
+
+def test_port_imports_without_jax():
+    # the port and chip_smoke.py must run where JAX is not installed
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import qoipp_tpu_torch\n"
+        "from qoipp_tpu_torch.models.pipeline import BatchPipeline\n"
+        "import qoipp_tpu_torch.convert, qoipp_tpu_torch.kernels\n"
+        "import chip_smoke\n"
+        "assert qoipp_tpu_torch.BatchPipeline is BatchPipeline\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
