@@ -4,26 +4,36 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the four CUDA kernels from qoipp_tpu_torch/csrc;
+1. builds the six CUDA kernels from qoipp_tpu_torch/csrc and the native
+   oracle from native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
    bit-exact (tolerance 0);
-3. drives BatchPipeline's main path at 1920x1088 — 16 RGB and 8 RGBA
-   synthetic images (bench.make_corpus): decode_packed must equal the
-   oracle's pixels, encode_packed_chunked and encode the oracle's streams;
-4. requires every kernel's launch count from that run to be > 0;
-5. checks each kernel against its plain version again at the main path's
-   shapes and times both, then times decode and encode (1 cold, 3 warmup,
-   5 timed runs, CUDA events).
+3. drives three paths, each against the oracle, bit-exact:
+   - BatchPipeline at 1920x1088, 16 RGB and 8 RGBA synthetic images
+     (utils.corpus.make_corpus): decode_packed must equal the oracle's
+     pixels, encode_packed_chunked and encode the oracle's streams;
+   - SplitDecoder(lanes=96) on one 4096x4096 RGB stream (make_image, the
+     sparse case, chunk-domain compaction) and one 1920x1088 RGB stream
+     (the dense case, byte domain): decode_to_device must equal the
+     oracle's pixels;
+   - the one-shot codec (ops/backend): decode_single of a 1920x1088 RGB
+     and an RGBA stream, encode_single of the RGB image;
+4. requires each kernel of each path to have launched in that path's run
+   (counts set to 0 just before each run and read just after);
+5. checks each kernel against its plain version again at its path's
+   shapes and times both, then times every path (1 cold, 3 warmup, 5
+   timed runs, CUDA events).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
 non-zero with no final line; so does a machine without a CUDA device.
-It never imports JAX.
+It imports neither JAX nor the JAX package.
 """
 
 import sys
 
-sys.modules["jax"] = None  # the port runs where JAX is absent
+for _name in ("jax", "qoipp_tpu", "bench"):
+    sys.modules[_name] = None  # the port runs where these are absent
 
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -32,23 +42,30 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from bench import make_corpus  # noqa: E402
-from qoipp_tpu import oracle  # noqa: E402
-from qoipp_tpu_torch import kernels  # noqa: E402
+from qoipp_tpu_torch import kernels, oracle  # noqa: E402
+from qoipp_tpu_torch.common import Channels, Desc  # noqa: E402
 from qoipp_tpu_torch.kernels import selfcheck  # noqa: E402
+from qoipp_tpu_torch.models import split  # noqa: E402
 from qoipp_tpu_torch.models.pipeline import BatchPipeline  # noqa: E402
 from qoipp_tpu_torch.ops import (  # noqa: E402
+    backend,
     compact_kernel,
+    decode as dec_ops,
     emit_kernel,
     encode as enc_ops,
     place_kernel,
     replay_kernel,
 )
 from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
+from qoipp_tpu_torch.utils.corpus import make_corpus, make_image  # noqa: E402
 
 W, H = 1920, 1088
 CORPORA = (("rgb", 16, 0, 3), ("rgba", 8, 7, 4))  # label, B, seed, channels
+SPLIT_SIDE = 4096  # the sparse split stream is SPLIT_SIDE x SPLIT_SIDE RGB
+SPLIT_LANES = 96  # SplitDecoder's serving default
 PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs ~1 ms per row
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+OPS_PER_S = 67e12  # H100 SXM, published 32-bit rate outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
     "replay": ("qoipp_tpu_torch/csrc/replay.cu",
                "qoipp_tpu/ops/replay_kernel.py:183"),
@@ -58,7 +75,17 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                 "qoipp_tpu/ops/compact_kernel.py:212"),
     "emit": ("qoipp_tpu_torch/csrc/emit.cu",
              "qoipp_tpu/ops/emit_kernel.py:225"),
+    "replay_summary": ("qoipp_tpu_torch/csrc/replay.cu",
+                       "qoipp_tpu/ops/replay_kernel.py:225"),
+    "logfill": ("qoipp_tpu_torch/csrc/logfill.cu",
+                "qoipp_tpu/ops/replay_kernel.py:302"),
 }
+# 32-bit operations per element of each kernel's work (per row and lane for
+# the replays: class decode, selects, per-byte add, hash, table write; per
+# input row for compact; per output byte for emit); place_fill and logfill
+# count theirs from the data
+OPS_PER_ELEMENT = {"replay": 24, "replay_summary": 28, "compact": 3,
+                   "emit": 4}
 
 
 def log(*a):
@@ -84,6 +111,12 @@ def expect(cond, what):
         raise AssertionError(what)
 
 
+def bound(nbytes, ops):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
 def phase0_device():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible")
@@ -106,6 +139,10 @@ def phase1_build():
     for line in report.splitlines():
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    oracle.build()
+    log(f"phase 1: built {oracle.LIB_PATH.name} in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase2_edge_cases(dev):
@@ -155,6 +192,42 @@ def phase3_prepare(dev):
     return runs
 
 
+def phase3_prepare_split(runs, dev):
+    """The split path's two streams: the sparse SPLIT_SIDE^2 image and the
+    dense first image of the RGB corpus."""
+    t0 = time.perf_counter()
+    desc = Desc(SPLIT_SIDE, SPLIT_SIDE, Channels.RGB)
+    raw = make_image(SPLIT_SIDE, SPLIT_SIDE, seed=3)
+    blob, complete = oracle.encode(raw, desc)
+    expect(complete, "the oracle did not finish the sparse stream")
+    rgb = runs[0]
+    streams = (("sparse", desc, blob), ("dense", rgb["desc"],
+                                         rgb["blobs"][0]))
+    out = []
+    for label, d, b in streams:
+        dec = split.SplitDecoder(lanes=SPLIT_LANES, device=dev)
+        plan = dec.plan_and_pack([b])
+        out.append(dict(label=label, desc=d, blob=b, dec=dec, plan=plan,
+                        want=oracle.decode(b, d, d.channels)))
+        log(f"phase 3: split {label}: {d.width}x{d.height}, {b.size} bytes, "
+            f"lanes {plan[0].shape[0]}, qb {plan[6]}, qc {plan[9]}, "
+            f"n_cap {plan[7]}, max_chain {plan[8]}")
+    log(f"phase 3: split streams made in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase3_prepare_oneshot(runs, dev):
+    """The one-shot path's images: the first of each corpus."""
+    out = []
+    for run in runs:
+        d = run["desc"]
+        out.append(dict(label=run["label"], desc=d, dev=dev,
+                        raw=run["raws"][0],
+                        blob=run["blobs"][0],
+                        want=oracle.decode(run["blobs"][0], d, d.channels)))
+    return out
+
+
 def _check_streams(run, out, lengths, ok, what):
     want, want_len = run["want"]
     col = torch.arange(out.shape[1], device=out.device)[None, :]
@@ -181,16 +254,69 @@ def phase3_main_path(runs):
             f"and encode equal the oracle on all {len(run['blobs'])} images")
 
 
-def _kernel_row(name, launches, err, ms, plain_ms, **extra):
+def phase3_split(run):
+    dec = run["dec"]
+    packed, where, descs, rounds = dec.decode_to_device([run["blob"]])
+    got = dec.gather(packed, where, descs)[0]
+    expect(np.array_equal(got, run["want"]),
+           f"split[{run['label']}]: pixels differ from the oracle")
+    run["rounds"] = rounds
+    plan = run["plan"]
+    log(f"phase 3: split {run['label']}: lanes {plan[0].shape[0]}, qb "
+        f"{plan[6]}, qc {plan[9]}, rounds {rounds}, max_chain {plan[8]}: "
+        "equal to the oracle")
+
+
+def phase3_oneshot_decode(run):
+    d = run["desc"]
+    got = backend.decode_single(run["blob"], d, d.channels,
+                                device=run["dev"])
+    expect(np.array_equal(got, run["want"]),
+           f"decode_single[{run['label']}]: pixels differ from the oracle")
+    log(f"phase 3: decode_single[{run['label']}] equals the oracle")
+
+
+def phase3_oneshot_encode(run):
+    got = backend.encode_single(run["raw"], run["desc"], device=run["dev"])
+    expect(np.array_equal(got, run["blob"]),
+           f"encode_single[{run['label']}]: stream differs from the oracle")
+    log(f"phase 3: encode_single[{run['label']}] equals the oracle")
+
+
+def drive(label, fn, needs, totals):
+    """Run one path with every launch count at 0, then require each kernel
+    of `needs` to have launched in it; add the counts to totals."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    log(f"phase 4: launches on {label}: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for name in needs:
+        expect(launches[name] > 0, f"{label} never launched {name}")
+    for name, n in launches.items():
+        totals[name] = totals.get(name, 0) + n
+
+
+def _kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, **extra):
     source, replaces = KERNELS[name]
+    bound_s, bound_by = bound(nbytes, ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=bound_by, library_ms=None,
                 **extra)
 
 
+def _replay_bytes(c, b, summary):
+    """meta and val read, emits written; the 65-word state read and
+    written per lane (and K5's 65 summary words written)."""
+    return 12 * c * b + 4 * b * (65 * 2 + (65 if summary else 0))
+
+
 def phase5_kernels_at_main_shapes(run, launches):
-    """Each kernel against its plain version on the inputs the main path
-    gives it (RGB corpus), and both timed."""
+    """Each kernel of the batch path against its plain version on the
+    inputs that path gives it (RGB corpus), and both timed."""
     pipe = run["pipe"]
     rows = []
     meta_t, val_t, pix_before = pipe.replay_inputs(run["streams"],
@@ -211,21 +337,14 @@ def phase5_kernels_at_main_shapes(run, launches):
         f"{ms / c * 1e6:.1f} ns/row; plain on {pm.shape[0]} rows "
         f"{plain_ms:.1f} ms = {plain_ms / pm.shape[0] * 1e3:.1f} us/row "
         f"(kernel on those rows {prefix_ms:.3f} ms)")
-    rows.append(_kernel_row("replay", launches["replay"], err, ms, plain_ms,
-                            rows=c, lanes=b, plain_rows=pm.shape[0],
-                            ms_on_plain_rows=prefix_ms))
+    rows.append(_kernel_row(
+        "replay", launches["replay"], err, ms, plain_ms,
+        _replay_bytes(c, b, False), OPS_PER_ELEMENT["replay"] * c * b,
+        rows=c, lanes=b, plain_rows=pm.shape[0], ms_on_plain_rows=prefix_ms))
 
     emits = replay_kernel.replay_batch(meta_t, val_t).T.contiguous()
-    args = (pix_before, emits, pipe.n_cap)
-    err = selfcheck.max_abs_err(place_kernel.place_fill(*args),
-                                place_kernel.place_fill_reference(*args))
-    expect(err == 0, "place_fill disagrees with its plain version")
-    ms = timed_ms(lambda: place_kernel.place_fill(*args))
-    plain_ms = timed_ms(lambda: place_kernel.place_fill_reference(*args))
-    log(f"phase 5: place_fill ({b} x {pix_before.shape[1]} rows -> "
-        f"{pipe.n_cap} px): {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows.append(_kernel_row("place_fill", launches["place_fill"], err, ms,
-                            plain_ms))
+    rows.append(_place_fill_row(pix_before, emits, pipe.n_cap, launches,
+                                "batch"))
 
     packed = run["packed_in"][:8]  # the sub-batch encode_packed_chunked runs
     posflag, keep, fb = enc_ops.chunk_positions(packed, pipe.n_px)
@@ -241,10 +360,13 @@ def phase5_kernels_at_main_shapes(run, launches):
     expect(err == 0, "compact disagrees with its plain version")
     ms = timed_ms(lambda: compact_kernel.compact_rows(*args))
     plain_ms = timed_ms(lambda: compact_kernel.compact_rows_reference(*args))
-    log(f"phase 5: compact (8 x {packed.shape[1]} rows, 2 planes -> "
+    nb, n = keep.shape
+    log(f"phase 5: compact (8 x {n} rows, 2 planes -> "
         f"{pipe.chunk_cap}): {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows.append(_kernel_row("compact", launches["compact"], err, ms,
-                            plain_ms))
+    rows.append(_kernel_row(
+        "compact", launches["compact"], err, ms, plain_ms,
+        nb * n * (2 * 4 + 1) + nb * pipe.chunk_cap * 2 * 4 + 4 * nb,
+        OPS_PER_ELEMENT["compact"] * nb * n))
 
     off, tlo, thn, _ = enc_ops.chunk_templates(pk_c, pf_c, counts, pipe.n_px,
                                                fb, pipe.channels)
@@ -256,23 +378,128 @@ def phase5_kernels_at_main_shapes(run, launches):
     plain_ms = timed_ms(lambda: emit_kernel.emit_bytes_reference(*args))
     log(f"phase 5: emit (8 x {off.shape[1]} rows -> {pipe.out_cap} bytes): "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
-    rows.append(_kernel_row("emit", launches["emit"], err, ms, plain_ms))
+    rows.append(_kernel_row(
+        "emit", launches["emit"], err, ms, plain_ms,
+        12 * off.numel() + off.shape[0] * pipe.out_cap,
+        OPS_PER_ELEMENT["emit"] * off.shape[0] * pipe.out_cap))
     return rows
+
+
+def _place_fill_row(pix_before, emits, n_cap, launches, where):
+    args = (pix_before, emits, n_cap)
+    err = selfcheck.max_abs_err(place_kernel.place_fill(*args),
+                                place_kernel.place_fill_reference(*args))
+    expect(err == 0, f"place_fill disagrees with its plain version ({where})")
+    ms = timed_ms(lambda: place_kernel.place_fill(*args))
+    plain_ms = timed_ms(lambda: place_kernel.place_fill_reference(*args))
+    b, q = pix_before.shape
+    log(f"phase 5: place_fill on the {where} path ({b} x {q} rows -> "
+        f"{n_cap} px): {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # a binary search over the rows per pixel: ~2 operations per step
+    return _kernel_row("place_fill", launches["place_fill"], err, ms,
+                       plain_ms, 8 * b * q + 4 * b * n_cap,
+                       2 * b * n_cap * max(q, 2).bit_length())
+
+
+def phase5_split_kernels(run, launches):
+    """K5 on the sparse split stream's rows from the round-0 guess, K2 on
+    its lanes (timed, not reported: the batch path's K2 row stands)."""
+    dec = run["dec"]
+    (regions, _, chunks_sizes, px_budgets, _, _, _, qb, n_cap,
+     qc) = dec.stage_plan(run["plan"])
+    meta_t, val_t, pix_before = split.lane_rows(regions, chunks_sizes,
+                                                px_budgets, qb, n_cap, qc)
+    c, b = meta_t.shape
+    in_p, in_s = split.initial_guess(b, meta_t.device)
+    pm, pv = meta_t[:PLAIN_REPLAY_ROWS], val_t[:PLAIN_REPLAY_ROWS]
+    err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
+        replay_kernel.replay_batch_summary(pm, pv, in_p, in_s),
+        replay_kernel.replay_batch_summary_reference(pm, pv, in_p, in_s)))
+    expect(err == 0, "replay_summary disagrees with its plain version")
+    ms = timed_ms(lambda: replay_kernel.replay_batch_summary(
+        meta_t, val_t, in_p, in_s))
+    prefix_ms = timed_ms(lambda: replay_kernel.replay_batch_summary(
+        pm, pv, in_p, in_s))
+    plain_ms = timed_ms(lambda: replay_kernel.replay_batch_summary_reference(
+        pm, pv, in_p, in_s), warmup=1, runs=1)
+    log(f"phase 5: replay_summary (C={c}, B={b}, one fixpoint round): "
+        f"{ms:.3f} ms, {ms / c * 1e6:.1f} ns/row; plain on {pm.shape[0]} "
+        f"rows {plain_ms:.1f} ms (kernel on those rows {prefix_ms:.3f} ms)")
+    emits = replay_kernel.replay_batch_summary(meta_t, val_t, in_p,
+                                               in_s)[0].T.contiguous()
+    _place_fill_row(pix_before, emits, n_cap, launches, "split")
+    return _kernel_row(
+        "replay_summary", launches["replay_summary"], err, ms, plain_ms,
+        _replay_bytes(c, b, True), OPS_PER_ELEMENT["replay_summary"] * c * b,
+        rows=c, lanes=b, plain_rows=pm.shape[0], ms_on_plain_rows=prefix_ms)
+
+
+def phase5_logfill(run, launches, dev):
+    """K6 on the one-shot RGB decode's flagged words."""
+    emits, real, produced, pix_before, n_cap = dec_ops.expansion_inputs(
+        run["blob"], run["desc"], dev)
+    words = dec_ops.flagged_words(emits, real, produced, pix_before, n_cap)
+    err = selfcheck.max_abs_err(
+        replay_kernel.logfill_batch(words),
+        replay_kernel.logfill_batch_reference(words))
+    expect(err == 0, "logfill disagrees with its plain version")
+    ms = timed_ms(lambda: replay_kernel.logfill_batch(words))
+    plain_ms = timed_ms(lambda: replay_kernel.logfill_batch_reference(words))
+    # the search reads back from each word to its nearest flag, at most 64
+    # words: one compare per word read
+    col = torch.arange(words.shape[1], device=dev)
+    last = torch.cummax(torch.where(words < 0, col, -(1 << 20)), 1).values
+    reads = int(torch.clamp(col - last + 1, max=64).sum())
+    b, n = words.shape
+    log(f"phase 5: logfill ({b} x {n} words, {reads / words.numel():.2f} "
+        f"reads/word): {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return _kernel_row("logfill", launches["logfill"], err, ms, plain_ms,
+                       8 * b * n, reads, words=b * n)
+
+
+def _time_path(what, fn, mpix, card):
+    cold = timed_ms(fn, warmup=0, runs=1)
+    ms = timed_ms(fn, warmup=3, runs=5)
+    log(f"phase 5: {what}: {ms:.2f} ms = {mpix / ms * 1e3:.1f} MPix/s "
+        f"(cold {cold:.2f} ms) on {card}")
 
 
 def phase5_pipeline_times(run, card):
     pipe, b = run["pipe"], len(run["blobs"])
     mpix = b * pipe.n_px / 1e6
-    for what, fn in (
-        ("decode_packed", lambda: pipe.decode_packed(run["streams"],
-                                                     run["sizes"])),
-        ("encode_packed_chunked", lambda: pipe.encode_packed_chunked(
-            run["packed_in"], sub=8)),
-    ):
-        cold = timed_ms(fn, warmup=0, runs=1)
-        ms = timed_ms(fn, warmup=3, runs=5)
-        log(f"phase 5: {what}[{run['label']}] B={b}: {ms:.2f} ms/batch = "
-            f"{mpix / ms * 1e3:.1f} MPix/s (cold {cold:.2f} ms) on {card}")
+    _time_path(f"decode_packed[{run['label']}] B={b}",
+               lambda: pipe.decode_packed(run["streams"], run["sizes"]),
+               mpix, card)
+    _time_path(f"encode_packed_chunked[{run['label']}] B={b}",
+               lambda: pipe.encode_packed_chunked(run["packed_in"], sub=8),
+               mpix, card)
+
+
+def phase5_split_times(run, card):
+    dec, d = run["dec"], run["desc"]
+    mpix = d.width * d.height / 1e6
+    staged = dec.stage_plan(run["plan"])
+    what = (f"split {run['label']} {d.width}x{d.height} L={SPLIT_LANES} "
+            f"rounds={run['rounds']}")
+    _time_path(f"{what} decode_to_device",
+               lambda: dec.decode_to_device([run["blob"]]), mpix, card)
+    _time_path(f"{what} dispatch_staged",
+               lambda: dec.dispatch_staged(staged), mpix, card)
+
+
+def phase5_oneshot_times(runs, card):
+    for run in runs:
+        d = run["desc"]
+        mpix = d.width * d.height / 1e6
+        _time_path(f"decode_single[{run['label']}]",
+                   lambda: backend.decode_single(run["blob"], d, d.channels,
+                                                 device=run["dev"]),
+                   mpix, card)
+    run = runs[0]
+    _time_path(f"encode_single[{run['label']}]",
+               lambda: backend.encode_single(run["raw"], run["desc"],
+                                             device=run["dev"]),
+               run["desc"].width * run["desc"].height / 1e6, card)
 
 
 def main():
@@ -281,17 +508,33 @@ def main():
     phase1_build()
     phase2_edge_cases(dev)
     runs = phase3_prepare(dev)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    phase3_main_path(runs)
-    torch.cuda.synchronize()
-    launches = kernels.launch_counts()
-    log(f"phase 4: launches on the main path: {launches}")
-    for name in KERNELS:
-        expect(launches[name] > 0, f"the main path never launched {name}")
+    split_runs = phase3_prepare_split(runs, dev)
+    oneshot = phase3_prepare_oneshot(runs, dev)
+    launches = {}
+    drive("the batch path", lambda: phase3_main_path(runs),
+          ("replay", "place_fill", "compact", "emit"), launches)
+    sparse, dense = split_runs
+    drive("the split path (sparse)", lambda: phase3_split(sparse),
+          ("replay_summary", "compact", "place_fill"), launches)
+    drive("the split path (dense)", lambda: phase3_split(dense),
+          ("replay_summary", "place_fill"), launches)
+    drive("the one-shot path (decode rgb)",
+          lambda: phase3_oneshot_decode(oneshot[0]), ("replay", "logfill"),
+          launches)
+    drive("the one-shot path (decode rgba)",
+          lambda: phase3_oneshot_decode(oneshot[1]), ("replay",), launches)
+    drive("the one-shot path (encode rgb)",
+          lambda: phase3_oneshot_encode(oneshot[0]), ("compact", "emit"),
+          launches)
+    log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches)
+    rows.append(phase5_split_kernels(sparse, launches))
+    rows.append(phase5_logfill(oneshot[0], launches, dev))
     for run in runs:
         phase5_pipeline_times(run, card)
+    for run in split_runs:
+        phase5_split_times(run, card)
+    phase5_oneshot_times(oneshot, card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """qoipp_tpu_torch — the QOI batch codec in PyTorch, with hand-written CUDA
 kernels for Hopper (sm_90a).
 
-The port of ``qoipp_tpu``'s main path (``BatchPipeline``): the same module
-names, the same public shapes, bit-exact output.  The JAX-free host layer
-(``Desc``, ``Channels``, headers, the native oracle) is shared with
-``qoipp_tpu``, never copied; this package imports ``torch`` and never
-``jax``.
+The port of ``qoipp_tpu``: the same module names, the same public shapes,
+bit-exact output.  Its host layer (``common``: ``Desc``, ``Channels``,
+headers; ``oracle``: the native reference codec) is its own copy; this
+package imports ``torch`` and never ``jax`` or ``qoipp_tpu``.  Entry points
+run on the CUDA device unless the caller passes ``device="cpu"``.
 
 Pixel words travel as ``torch.int32`` tensors holding the uint32 bit
 pattern ``r | g<<8 | b<<16 | a<<24`` (torch lacks most uint32 arithmetic);
@@ -13,7 +13,7 @@ pattern ``r | g<<8 | b<<16 | a<<24`` (torch lacks most uint32 arithmetic);
 uint32 numpy arrays the JAX package uses.
 """
 
-from qoipp_tpu.common import (
+from .common import (
     END_MARKER,
     HEADER_SIZE,
     Channels,

@@ -1,10 +1,11 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
-The four kernels of the main path live in ``qoipp_tpu_torch/csrc`` as CUDA
-C++ for sm_90a behind a plain C interface.  On first use they are built
-with ``nvcc`` into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the
-root of the checkout (rebuilt whenever a source is newer than the
-library) and loaded with ctypes.  Nothing here runs when the module is
+The port's six kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
+sm_90a behind a plain C interface.  On first use they are built with
+``nvcc`` (one compiler process per source, all at once, then one link)
+into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the root of the
+checkout (rebuilt whenever a source is newer than the library) and loaded
+with ctypes.  Nothing here runs when the module is
 imported, so the CPU-only test suite can import it.
 
 Every C entry point launches on the stream it is given, allocates nothing,
@@ -27,23 +28,29 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
-SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu")
+SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
+           "logfill.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launch_counts()
-LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0}
+LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
+            "replay_summary": 0, "logfill": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # meta, val, prev_in, seen_in, emits, prev_out, seen_out, C, B, stream
     "qk_replay": [_P] * 7 + [_L, _I, _P],
+    # qk_replay's pointers, pupd, swr, C, B, stream
+    "qk_replay_summary": [_P] * 9 + [_L, _I, _P],
     # pb, emits, out, B, Q, n_cap, stream
     "qk_place_fill": [_P, _P, _P, _I, _L, _L, _P],
     # keep, gidx, nplanes, in0..in3, out0..out3, B, N, cap, stream
     "qk_compact": [_P, _P, _I] + [_P] * 8 + [_I, _L, _L, _P],
     # off, tlo, thn, out, B, C, out_cap, stream
     "qk_emit": [_P] * 4 + [_I, _L, _L, _P],
+    # words, out, B, n, stream
+    "qk_logfill": [_P, _P, _I, _L, _P],
 }
 
 _lock = threading.Lock()
@@ -79,22 +86,42 @@ def _stale() -> bool:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernels if the library is missing or stale.  Returns the
-    compiler's output (with ``verbose``, ptxas' register and spill report);
-    raises RuntimeError if nvcc fails."""
+    """Compile the kernels if the library is missing or stale: one nvcc
+    per source, started together, then one link.  Returns the compilers'
+    output (with ``verbose``, ptxas' register and spill report); raises
+    RuntimeError if nvcc fails."""
     if not _stale() and not verbose:
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".libqoipp_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = os.getpid()
+    objs = [BUILD_DIR / f".{Path(s).stem}.{tag}.o" for s in SOURCES]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    procs = [subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(CSRC / s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(SOURCES, objs)]
+    report = ""
+    failed = []
+    for s, p in zip(SOURCES, procs):
+        out = p.communicate()[0]
+        report += out
+        if p.returncode != 0:
+            failed.append(f"{s} ({p.returncode}):\n{out}")
+    tmp = BUILD_DIR / f".libqoipp_kernels.{tag}.so"
+    if not failed:
+        proc = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        report += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)  # atomic: no process loads half a library
-    return proc.stdout + proc.stderr
+    return report
 
 
 def library() -> ctypes.CDLL:

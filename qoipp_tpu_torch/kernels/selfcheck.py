@@ -12,7 +12,13 @@ bit-exact.  The cases:
               lanes that end inside it, a lane whose first offset is > 0;
   compact:    empty, full and random keep masks, one to four planes;
   emit:       encoder-shaped rows, a lane of 6-byte rows across every
-              8192-byte window edge and past out_cap.
+              8192-byte window edge and past out_cap;
+  replay_summary: resets mid-lane, IDX-only lanes, lanes that write
+              nothing (NOP/RUN only), random rows and a random carry;
+  logfill:    gaps of exactly 63 and 64, gaps across the kernel's tile
+              boundary, a flag at column 0, a row with no flag, a row
+              length that is not a multiple of the tile, and random
+              unflagged words (where the kernel still equals the passes).
 """
 
 from __future__ import annotations
@@ -123,8 +129,52 @@ def _emit(device) -> int:
                        emit_kernel.emit_bytes_reference(*args, out_cap))
 
 
+def _replay_summary(device) -> int:
+    rng = np.random.default_rng(5)
+    c, b = 1029, 40
+    cls = rng.integers(0, 8, (c, b))
+    cls[:, 1] = 4  # IDX-only lane
+    cls[:, 2] = rng.choice([0, 5], c)  # lanes that write nothing
+    cls[:, 3] = rng.choice([0, 5], c)
+    arg = rng.integers(0, 64, (c, b))
+    rst = (rng.random((c, b)) < 0.01).astype(np.int64)
+    rst[:, 2] = 0
+    rst[:, 3] = 0
+    rst[c // 2, 3] = 1  # ... except one reset mid-lane
+    rst[c // 3, 4] = 1
+    meta = (cls | (arg << 3) | (rst << 9)).astype(np.uint32)
+    args = [_t(x, device) for x in (meta, _words(rng, (c, b)),
+                                    _words(rng, (1, b)), _words(rng, (64, b)))]
+    got = replay_kernel.replay_batch_summary(*args)
+    want = replay_kernel.replay_batch_summary_reference(*args)
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def _logfill(device) -> int:
+    rng = np.random.default_rng(6)
+    tile = 2048  # csrc/logfill.cu kTile
+    b, n = 6, 3 * tile + 77
+    flag = np.uint32(1 << 31)
+    words = np.zeros((b, n), np.uint32)
+    for i in range(2):  # random gaps of 1..64
+        pos = np.cumsum(rng.integers(1, 65, n))
+        pos = pos[pos < n]
+        words[i, pos] = flag | _words(rng, pos.size)
+    words[2, [0, 63, 127, 192, tile - 1, tile + 62, 2 * tile]] = flag | 7
+    words[3, [tile - 5, tile + 58, 2 * tile + 1, 3 * tile - 1]] = flag | 9
+    # row 4 has no flag
+    words[5] = _words(rng, n)  # unflagged words need not be 0
+    err = 0
+    for w in (words, words[:, : tile]):
+        tw = _t(w, device)
+        err = max(err, max_abs_err(replay_kernel.logfill_batch(tw),
+                                   replay_kernel.logfill_batch_reference(tw)))
+    return err
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
-         "emit": _emit}
+         "emit": _emit, "replay_summary": _replay_summary,
+         "logfill": _logfill}
 
 
 def check(name: str, device) -> int:

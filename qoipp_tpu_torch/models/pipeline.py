@@ -19,8 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from qoipp_tpu.common import Channels, Desc, write_header
-
+from .. import oracle
+from ..common import Channels, Desc, write_header
 from ..ops import boundary
 from ..ops import decode as dec_ops
 from ..ops import encode as enc_ops
@@ -41,8 +41,8 @@ class BatchPipeline:
     max_encode_len: longest QOI stream the encode path may produce;
         defaults to worst_size(desc).  Images that overflow it are flagged
         by the *_checked entry points, and encode() raises on them.
-    device: where inputs are moved and outputs stay ("cpu" runs the plain
-        versions of the kernels, a CUDA device the kernels).
+    device: where inputs are moved and outputs stay; None means "cuda"
+        (a CUDA device runs the kernels, "cpu" their plain versions).
     """
 
     def __init__(
@@ -50,10 +50,10 @@ class BatchPipeline:
         desc: Desc,
         max_stream_len: Optional[int] = None,
         max_encode_len: Optional[int] = None,
-        device="cpu",
+        device=None,
     ):
         self.desc = desc
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.channels = int(desc.channels)
         self.n_px = desc.width * desc.height
 
@@ -170,9 +170,7 @@ class BatchPipeline:
 
     def load_files(self, paths) -> Tuple[np.ndarray, np.ndarray]:
         """Native batch loader: QOI files -> ((B, l_cap) u8, (B,) i32)
-        via one C pass of the shared oracle."""
-        from qoipp_tpu import oracle
-
+        via one C pass of the native oracle."""
         return oracle.pack_files(list(paths), self.l_cap)
 
     def pack_streams(self, blobs) -> Tuple[np.ndarray, np.ndarray]:

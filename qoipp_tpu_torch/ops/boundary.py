@@ -112,3 +112,11 @@ def analyze_region_batch(regions, chunks_sizes, n_px: int):
         "total_chunks": real.sum(dim=1, dtype=torch.int32),
         "total_pixels": produced.sum(dim=1, dtype=torch.int32),
     }
+
+
+def analyze_region(region, chunks_size: int, n_px: int):
+    """Single-stream boundary analysis: analyze_region_batch at B=1, with
+    (Qb,) results and scalar totals."""
+    out = analyze_region_batch(
+        region[None], torch.tensor([chunks_size], device=region.device), n_px)
+    return {k: v[0] for k, v in out.items()}

@@ -43,6 +43,21 @@ def pad_to_tile(n: int) -> int:
     return _round_up(n, TILE)
 
 
+def bucket_size(n: int) -> int:
+    """The JAX package's pixel-count bucket: a power of two of TILEs, or a
+    step of 1/8 of it below, whichever first holds n (the one-shot
+    encoder's padded width)."""
+    n = max(n, TILE)
+    b = TILE
+    while b < n:
+        b *= 2
+    for frac in (b // 2 + b // 8, b // 2 + b // 4, b // 2 + 3 * b // 8,
+                 3 * b // 4, 7 * b // 8):
+        if frac >= n and frac % TILE == 0:
+            return frac
+    return b
+
+
 def _last_same_hash_value(packed, h, noneq):
     """For each position i of each row: the word of the most recent j < i
     with noneq[j] and h[j] == h[i], or 0 (the encoder's zero-initialised

@@ -1,0 +1,149 @@
+"""Where the device time goes, per path: a torch.profiler trace of each
+entry point at the smoke run's sizes, summed by kernel group.
+
+    python -m qoipp_tpu_torch.utils.profile      # on a machine with a card
+
+For each path it prints, per call (3 calls after 3 warmups): the device
+busy time (the union of kernel and copy intervals), the span from the
+first to the last of them, the idle share of that span, and the busy
+time by kernel group with launches.  The inputs are the smoke run's:
+BatchPipeline on 16 RGB and 8 RGBA 1920x1088 images, SplitDecoder(96) on
+the 4096x4096 sparse and the 1920x1088 dense stream, and the one-shot
+codec on one RGB and one RGBA 1920x1088 image.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+# (group, lower-case substring of the kernel name), first match wins
+GROUPS = (
+    ("K1/K5 replay", "replay_kernel"),
+    ("K2 place_fill", "place_fill"),
+    ("K3 compact", "compact_kernel"),
+    ("K4 emit", "emit_kernel"),
+    ("K6 logfill", "logfill"),
+    ("copies", "memcpy"),
+    ("fills", "memset"),
+    ("scans (cumsum, cummax)", "scan"),
+    ("sort", "sort"),
+    ("reductions", "reduce"),
+    ("torch elementwise", "elementwise"),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    return next((g for g, key in GROUPS if key in low), "other")
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_path(fn, calls: int = 3, warmup: int = 3) -> dict:
+    """Device busy ms, span ms and idle share per call of fn, and busy ms
+    and launches per call by kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the profiler saw no device activity")
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    groups: dict = {}
+    for e in events:
+        g = groups.setdefault(group_of(e.name), [0.0, 0])
+        g[0] += e.time_range.end - e.time_range.start
+        g[1] += 1
+    busy = busy_us(spans)
+    span = max(e for _, e in spans) - min(s for s, _ in spans)
+    return dict(busy_ms=busy / calls / 1e3, span_ms=span / calls / 1e3,
+                idle=1 - busy / span,
+                groups={k: (v[0] / calls / 1e3, v[1] / calls)
+                        for k, v in sorted(groups.items(),
+                                           key=lambda kv: -kv[1][0])})
+
+
+def _paths(dev):
+    """(label, fn) of every path the smoke run drives."""
+    from .. import oracle
+    from ..common import Channels, Desc
+    from ..models.pipeline import BatchPipeline
+    from ..models.split import SplitDecoder
+    from ..ops import backend
+    from ..ops.bitops import pixels_to_packed
+    from .corpus import make_corpus, make_image
+
+    paths = []
+    firsts = []
+    for label, b, seed, ch in (("rgb", 16, 0, 3), ("rgba", 8, 7, 4)):
+        desc, raws, blobs = make_corpus(b, 1920, 1088, seed=seed,
+                                        channels=ch)
+        firsts.append((label, desc, raws[0], blobs[0]))
+        ml = max(x.size for x in blobs)
+        pipe = BatchPipeline(desc, max_stream_len=ml,
+                             max_encode_len=ml + 4096, device=dev)
+        streams, sizes = (torch.from_numpy(x).to(dev)
+                          for x in pipe.pack_streams(blobs))
+        packed = torch.nn.functional.pad(
+            pixels_to_packed(torch.from_numpy(np.stack(raws)).to(dev), ch),
+            (0, pipe.nb - pipe.n_px))
+        paths.append((f"decode_packed {label} B={b}",
+                      lambda p=pipe, s=streams, z=sizes: p.decode_packed(s, z)))
+        paths.append((f"encode_packed_chunked {label} B={b}",
+                      lambda p=pipe, x=packed: p.encode_packed_chunked(x, 8)))
+    desc = Desc(4096, 4096, Channels.RGB)
+    sparse = oracle.encode(make_image(4096, 4096, seed=3), desc)[0]
+    for label, blob in (("sparse 4096x4096", sparse),
+                        ("dense 1920x1088", firsts[0][3])):
+        dec = SplitDecoder(lanes=96, device=dev)
+        staged = dec.stage_plan(dec.plan_and_pack([blob]))
+        paths.append((f"split {label} L=96 dispatch_staged",
+                      lambda d=dec, s=staged: d.dispatch_staged(s)))
+    for label, d, raw, blob in firsts:
+        paths.append((f"decode_single {label}",
+                      lambda d=d, b=blob: backend.decode_single(
+                          b, d, d.channels, device=dev)))
+    label, d, raw, _ = firsts[0]
+    paths.append((f"encode_single {label}",
+                  lambda d=d, r=raw: backend.encode_single(r, d, device=dev)))
+    return paths
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: no CUDA device visible")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    for label, fn in _paths(torch.device("cuda")):
+        r = profile_path(fn)
+        parts = "; ".join(f"{g} {ms:.3f} ({n:g})"
+                          for g, (ms, n) in r["groups"].items())
+        print(f"{label}: busy {r['busy_ms']:.3f} ms, span "
+              f"{r['span_ms']:.3f} ms, idle share {r['idle']:.3f} | "
+              f"{parts}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
-chip_smoke.py's phase 2), and the pipeline at a small size against the
-oracle.  Without a CUDA device every test here skips.
+chip_smoke.py's phase 2), and the batch pipeline, the split decoder and
+the one-shot codec at a small size against the port's oracle.  Without a
+CUDA device every test here skips.
 
 Run on a GPU machine: python -m pytest tests/test_torch_cuda.py -q"""
 
@@ -9,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from qoipp_tpu_torch import kernels
+from qoipp_tpu_torch import kernels, oracle
+from qoipp_tpu_torch.common import Channels, Desc
 from qoipp_tpu_torch.kernels import selfcheck
+from qoipp_tpu_torch.utils.corpus import make_corpus, make_image
 
 pytestmark = pytest.mark.cuda
 
@@ -32,8 +35,6 @@ def test_kernel_matches_plain_version(cuda, name):
 
 @pytest.mark.parametrize("channels", [3, 4])
 def test_pipeline_on_card_matches_oracle(cuda, channels):
-    from bench import make_corpus
-    from qoipp_tpu import oracle
     from qoipp_tpu_torch.models.pipeline import BatchPipeline
     from qoipp_tpu_torch.ops.bitops import pixels_to_packed
 
@@ -51,6 +52,46 @@ def test_pipeline_on_card_matches_oracle(cuda, channels):
     for i, blob in enumerate(blobs):
         assert int(lengths[i]) == blob.size
         assert np.array_equal(out[i, : blob.size].cpu().numpy(), blob)
+
+
+@pytest.mark.parametrize("lanes,chunk_domain", [(8, True), (32, False)])
+def test_split_on_card_matches_oracle(cuda, lanes, chunk_domain):
+    from qoipp_tpu_torch.models.split import SplitDecoder
+
+    desc = Desc(1024, 768, Channels.RGB)
+    sparse = oracle.encode(make_image(1024, 768, seed=3), desc)[0]
+    _, _, blobs = make_corpus(2, 160, 96, seed=1, channels=4)
+    streams = [sparse] + blobs
+    dec = SplitDecoder(lanes=lanes)
+    # the host plan picks the chunk domain (qc > 0) or the byte domain
+    assert (dec.plan_and_pack(streams)[9] > 0) == chunk_domain
+    before = kernels.launch_counts()
+    packed, where, descs, rounds = dec.decode_to_device(streams)
+    assert packed.device.type == "cuda" and rounds >= 1
+    after = kernels.launch_counts()
+    for name in ("replay_summary", "place_fill") + (
+            ("compact",) if chunk_domain else ()):
+        assert after[name] > before[name]
+    for got, blob, d in zip(dec.gather(packed, where, descs), streams,
+                            descs):
+        assert np.array_equal(got, oracle.decode(blob, d, d.channels))
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_oneshot_on_card_matches_oracle(cuda, channels):
+    from qoipp_tpu_torch.ops import backend
+
+    desc, raws, blobs = make_corpus(1, 200, 120, seed=channels,
+                                    channels=channels)
+    before = kernels.launch_counts()
+    for blob in (blobs[0], blobs[0][: blobs[0].size // 2]):  # and truncated
+        got = backend.decode_single(blob, desc, desc.channels)
+        assert np.array_equal(got, oracle.decode(blob, desc, desc.channels))
+    assert np.array_equal(backend.encode_single(raws[0], desc), blobs[0])
+    after = kernels.launch_counts()
+    for name in ("replay", "compact", "emit") + (
+            ("logfill",) if channels == 3 else ()):
+        assert after[name] > before[name]
 
 
 def test_wrapper_rejects_bad_input(cuda):

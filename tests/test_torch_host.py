@@ -1,0 +1,108 @@
+"""The port's own host layer (common, oracle, utils.corpus) against the JAX
+package's: headers, the native split planner and the synthetic corpora
+must be byte-equal, so both packages see the same inputs and plans."""
+
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import bench
+from qoipp_tpu import common as jcommon
+from qoipp_tpu import oracle as joracle
+from qoipp_tpu_torch import common, oracle
+from qoipp_tpu_torch.utils import corpus
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _jdesc(d):
+    return jcommon.Desc(d.width, d.height, jcommon.Channels(int(d.channels)),
+                        jcommon.Colorspace(int(d.colorspace)))
+
+
+def _same_desc(a, b):
+    return ((a.width, a.height, int(a.channels), int(a.colorspace))
+            == (b.width, b.height, int(b.channels), int(b.colorspace)))
+
+
+@pytest.mark.parametrize("desc", [
+    common.Desc(29, 17, common.Channels.RGB),
+    common.Desc(1, 65535, common.Channels.RGBA, common.Colorspace.LINEAR),
+    common.Desc(4096, 4096, common.Channels.RGB),
+])
+def test_header_roundtrip_matches_jax(desc):
+    head = common.write_header(desc)
+    assert head == jcommon.write_header(_jdesc(desc))
+    assert len(head) == common.HEADER_SIZE == jcommon.HEADER_SIZE
+    got, want = common.read_header(head + b"\0" * 8), jcommon.read_header(head)
+    assert bool(got) and bool(want)
+    assert _same_desc(got.value(), want.value())
+    assert common.worst_size(desc).value() == jcommon.worst_size(
+        _jdesc(desc)).value()
+    assert common.END_MARKER == jcommon.END_MARKER
+
+
+@pytest.mark.parametrize("data", [
+    b"", b"qoif", b"xoif" + bytes(10), b"qoif" + bytes(8) + bytes([5, 0]),
+    b"qoif" + bytes(8) + bytes([3, 0]),  # zero width
+    b"qoif\0\0\0\1\0\0\0\1" + bytes([3, 2]),  # bad colorspace
+])
+def test_read_header_errors_match_jax(data):
+    got, want = common.read_header(data), jcommon.read_header(data)
+    assert not got and not want
+    assert int(got.error()) == int(want.error())
+
+
+@pytest.mark.parametrize("n_segments,lookahead,prefer_rgba", [
+    (1, 0, False), (7, 0, False), (16, 64, False), (16, 64, True)])
+def test_split_points_match_jax(n_segments, lookahead, prefer_rgba):
+    desc, _, blobs = corpus.make_corpus(1, 96, 64, seed=2,
+                                        channels=4 if prefer_rgba else 3)
+    body = blobs[0][14:-8]
+    n_px = desc.width * desc.height
+    args = (body, n_px, n_segments, 50.0, 1.5)
+    kw = dict(lookahead=lookahead, prefer_rgba=prefer_rgba, chunk_w=0.25)
+    for got, want in zip(oracle.split_points(*args, **kw),
+                         joracle.split_points(*args, **kw)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels,seed", [(3, 0), (4, 7)])
+def test_make_corpus_matches_bench(channels, seed):
+    desc, raws, blobs = corpus.make_corpus(2, 80, 48, seed=seed,
+                                           channels=channels)
+    jdesc, jraws, jblobs = bench.make_corpus(2, 80, 48, seed=seed,
+                                             channels=channels)
+    assert _same_desc(desc, jdesc)
+    for a, b in zip(raws + blobs, jraws + jblobs):
+        assert np.array_equal(a, b)
+    for raw, blob in zip(raws, blobs):  # the port's oracle, both ways
+        assert np.array_equal(oracle.decode(blob, desc, desc.channels), raw)
+        assert np.array_equal(oracle.encode(raw, desc)[0], blob)
+
+
+def test_make_image_matches_device_stream_bench():
+    spec = importlib.util.spec_from_file_location(
+        "device_stream_bench", ROOT / "benchmarks" / "device_stream_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert np.array_equal(corpus.make_image(160, 120, seed=3),
+                          mod.make_image(160, 120, seed=3))
+
+
+def test_pack_files_matches_jax(tmp_path):
+    _, _, blobs = corpus.make_corpus(3, 64, 48, seed=5)
+    paths = []
+    for i, blob in enumerate(blobs):
+        paths.append(tmp_path / f"{i}.qoi")
+        paths[-1].write_bytes(blob.tobytes())
+    got, want = oracle.pack_files(paths, 8192), joracle.pack_files(paths, 8192)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_oracle_builds_its_own_library():
+    assert oracle.build() == oracle.LIB_PATH
+    assert oracle.LIB_PATH.parent.name == "qoipp_tpu_torch"
+    assert oracle.LIB_PATH.parent.parent.name == "build"

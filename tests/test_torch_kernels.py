@@ -151,3 +151,75 @@ def test_emit_bytes():
                                  words_to_torch(thn), out_cap)
     assert got.dtype == torch.uint8 and got.shape == (b, out_cap)
     assert np.array_equal(_np(want).astype(np.uint8), got.numpy())
+
+
+@pytest.mark.parametrize("seed,p_rst", [(2, 0.0), (3, 0.02)])
+def test_replay_batch_summary(seed, p_rst):
+    rng = np.random.default_rng(seed)
+    c, b = 1024, 8
+    meta, val = _chunk_rows(rng, c, b, p_rst)
+    cls = meta & 7
+    cls[:, 1] = 4  # an IDX-only lane
+    cls[:, 2] = rng.choice([0, 5], c)  # a lane that writes nothing
+    meta = (meta & ~np.uint32(7)) | cls
+    meta[:, 2] &= ~np.uint32(1 << 9)
+    prev, seen = _words(rng, (1, b)), _words(rng, (64, b))
+    want = jrk.replay_batch_summary(jnp.asarray(meta), jnp.asarray(val),
+                                    jnp.asarray(prev), jnp.asarray(seen))
+    tprev, tseen = convert.carry_from_jax(prev, seen)
+    got = replay_kernel.replay_batch_summary(
+        words_to_torch(meta), words_to_torch(val), tprev, tseen)
+    assert len(got) == 5
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        assert np.array_equal(_np(w).view(np.uint32), words_to_numpy(g))
+    pupd, swr = got[3].numpy(), got[4].numpy()
+    assert pupd[0, 2] == 0 and not swr[:, 2].any()  # lane 2 wrote nothing
+    # K1's results are K5's first three
+    k1 = replay_kernel.replay_batch_carry(words_to_torch(meta),
+                                          words_to_torch(val), tprev, tseen)
+    for a, g in zip(k1, got):
+        assert torch.equal(a, g)
+
+
+def _flagged_rows(rng, b, n):
+    """Expansion-shaped K6 input: flagged words (bit 31) at gaps of 1..64,
+    every other word 0; row 0 has a flag at column 0, the last row none."""
+    words = np.zeros((b, n), np.uint32)
+    for i in range(b - 1):
+        pos = np.cumsum(rng.integers(1, 65, n))
+        pos = pos[pos < n]
+        words[i, pos] = np.uint32(1 << 31) | (_words(rng, pos.size) >> 1)
+    words[0, 0] = np.uint32(1 << 31) | 5
+    return words
+
+
+def test_logfill_batch():
+    rng = np.random.default_rng(11)
+    b, n = 3, 4 * 4096
+    words = _flagged_rows(rng, b, n)
+    assert words[0, 0] >> 31 and not words[-1].any()
+    want = jrk.logfill_batch(jnp.asarray(words), blk=4096)
+    got = replay_kernel.logfill_batch(words_to_torch(words))
+    assert np.array_equal(_np(want), words_to_numpy(got))
+
+
+@pytest.mark.parametrize("zero_unflagged", [True, False])
+def test_logfill_window_rule(zero_unflagged):
+    # the rule csrc/logfill.cu computes: the nearest flagged word in
+    # [w - 63, w], else words[w - 63] (0 before the row start)
+    rng = np.random.default_rng(12)
+    b, n = 4, 3000
+    words = _flagged_rows(rng, b, n)
+    if not zero_unflagged:
+        words = np.where(words >> 31 != 0, words,
+                         _words(rng, (b, n)) >> 1).astype(np.uint32)
+    want = np.zeros_like(words)
+    for i in range(b):
+        for w in range(n):
+            flagged = [k for k in range(max(w - 63, 0), w + 1)
+                       if words[i, k] >> 31]
+            want[i, w] = (words[i, flagged[-1]] if flagged
+                          else words[i, w - 63] if w >= 63 else 0)
+    got = replay_kernel.logfill_batch(words_to_torch(words))
+    assert np.array_equal(want, words_to_numpy(got))

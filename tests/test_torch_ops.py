@@ -2,6 +2,7 @@
 bitops, the boundary pass, the dense field pass, the encoder's same-hash
 predecessor, the carry conversion, and the port's freedom from JAX."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -144,15 +145,57 @@ def test_carry_conversion_roundtrip():
 
 
 def test_port_imports_without_jax():
-    # the port and chip_smoke.py must run where JAX is not installed
+    # the port and chip_smoke.py must run where neither JAX nor the JAX
+    # package is installed: import every module of the port with jax,
+    # qoipp_tpu and bench blocked
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys, importlib, pkgutil\n"
+        "for name in ('jax', 'qoipp_tpu', 'bench'):\n"
+        "    sys.modules[name] = None\n"
         "import qoipp_tpu_torch\n"
-        "from qoipp_tpu_torch.models.pipeline import BatchPipeline\n"
-        "import qoipp_tpu_torch.convert, qoipp_tpu_torch.kernels\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    qoipp_tpu_torch.__path__, 'qoipp_tpu_torch.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
+        "from qoipp_tpu_torch.models.pipeline import BatchPipeline\n"
         "assert qoipp_tpu_torch.BatchPipeline is BatchPipeline\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_sources():
+    return sorted((ROOT / "qoipp_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_nothing_of_jax(path):
+    banned = ("jax", "qoipp_tpu", "bench")
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in banned, (
+                f"{path.name}:{node.lineno} imports {name}")
+
+
+def test_profile_grouping_and_busy_union():
+    from qoipp_tpu_torch.utils import profile
+
+    assert profile.busy_us([(0, 4), (2, 6), (10, 11), (10.5, 10.7)]) == 7
+    assert profile.busy_us([]) == 0
+    assert profile.group_of("void (anonymous namespace)::replay_kernel"
+                            "<true>(unsigned int const*)") == "K1/K5 replay"
+    assert profile.group_of("Memcpy HtoD (Pageable -> Device)") == "copies"
+    assert profile.group_of("void at::native::vectorized_elementwise_kernel"
+                            "<4, ...>") == "torch elementwise"
+    assert profile.group_of("some_other_kernel") == "other"

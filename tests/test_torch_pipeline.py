@@ -26,7 +26,7 @@ def _pipes(desc, blobs, **kw):
     ml = max(b.size for b in blobs)
     args = dict(max_stream_len=ml, max_encode_len=ml + 4096)
     args.update(kw)
-    return BatchPipeline(desc, **args), JaxPipeline(desc, **args)
+    return BatchPipeline(desc, device="cpu", **args), JaxPipeline(desc, **args)
 
 
 def _check_decode(desc, blobs, pipe, jpipe):
@@ -101,7 +101,7 @@ def test_golden_and_truncated_decode(desc, names):
 
     blobs = [load_fixture(n) for n in names]
     assert blobs[1].size < blobs[0].size  # the second stream is truncated
-    pipe = BatchPipeline(desc)
+    pipe = BatchPipeline(desc, device="cpu")
     _check_decode(desc, blobs, pipe, JaxPipeline(desc))
 
 
@@ -112,7 +112,7 @@ def test_golden_and_truncated_decode(desc, names):
 def test_golden_encode(desc, raw, qoi):
     from conftest import load_fixture
 
-    out, lengths = BatchPipeline(desc).encode(load_fixture(raw)[None])
+    out, lengths = BatchPipeline(desc, device="cpu").encode(load_fixture(raw)[None])
     _check_streams(out, lengths, [load_fixture(qoi)])
 
 
@@ -125,7 +125,7 @@ def test_load_files_matches_pack_streams(tmp_path):
     for i, blob in enumerate(blobs):
         paths.append(tmp_path / f"{i}.qoi")
         paths[-1].write_bytes(blob.tobytes())
-    pipe = BatchPipeline(DESC3)
+    pipe = BatchPipeline(DESC3, device="cpu")
     streams, sizes = pipe.load_files(paths)
     want_streams, want_sizes = pipe.pack_streams(blobs)
     assert np.array_equal(streams, want_streams)
@@ -137,7 +137,7 @@ def test_crafted_index53_stream():
     desc = Desc(2, 1, Channels.RGBA)
     stream = np.frombuffer(write_header(desc) + bytes([53, 53]) + END_MARKER,
                            np.uint8)
-    pipe = BatchPipeline(desc)
+    pipe = BatchPipeline(desc, device="cpu")
     _check_decode(desc, [stream], pipe, JaxPipeline(desc))
     img = pipe.decode(*pipe.pack_streams([stream]))
     assert img[0, 0, 0].tolist() == [0, 0, 0, 255]
@@ -168,7 +168,7 @@ def test_encode_overflow_flag():
     ])
     blobs = [oracle.encode(r, desc)[0] for r in raws]
     assert min(b.size for b in blobs[:2]) > 1024 > blobs[2].size
-    tight = BatchPipeline(desc, max_encode_len=1024)
+    tight = BatchPipeline(desc, max_encode_len=1024, device="cpu")
     out, lengths, ok = tight.encode_raw_checked(raws)
     jout, jlen, jok = JaxPipeline(desc, max_encode_len=1024).encode_raw_checked(
         jnp.asarray(raws))
