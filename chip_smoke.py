@@ -4,11 +4,11 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the six CUDA kernels from qoipp_tpu_torch/csrc and the native
+1. builds the seven CUDA kernels from qoipp_tpu_torch/csrc and the native
    oracle from native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
    bit-exact (tolerance 0);
-3. drives three paths, each against the oracle, bit-exact:
+3. drives four paths, each against the oracle, bit-exact:
    - BatchPipeline at 1920x1088, 16 RGB and 8 RGBA synthetic images
      (utils.corpus.make_corpus): decode_packed must equal the oracle's
      pixels, encode_packed_chunked and encode the oracle's streams;
@@ -18,6 +18,15 @@
      oracle's pixels;
    - the one-shot codec (ops/backend): decode_single of a 1920x1088 RGB
      and an RGBA stream, encode_single of the RGB image;
+   - the streaming codec (ops/device_stream), as
+     benchmarks/device_stream_bench.py drives the JAX package's: the
+     4096x4096 RGB stream decoded by DeviceStreamDecoder(96 lanes) fed in
+     window_cap pieces at window_cap 1 MB (2 windows) and 4 MB (1 window),
+     and the raw image encoded by DeviceStreamEncoder at 2^18-pixel
+     windows on one lane and 2^20-pixel windows on 16; the first RGBA
+     1920x1088 image decoded at 1 MB and encoded at 2^18 pixels on 1 and
+     8 lanes.  Decoded pixels must equal the oracle's, encoded streams
+     (header, windows, finalize) its bytes;
 4. requires each kernel of each path to have launched in that path's run
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
@@ -51,8 +60,10 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     backend,
     compact_kernel,
     decode as dec_ops,
+    device_stream,
     emit_kernel,
     encode as enc_ops,
+    fields_kernel,
     place_kernel,
     replay_kernel,
 )
@@ -79,13 +90,21 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                        "qoipp_tpu/ops/replay_kernel.py:225"),
     "logfill": ("qoipp_tpu_torch/csrc/logfill.cu",
                 "qoipp_tpu/ops/replay_kernel.py:302"),
+    "fields": ("qoipp_tpu_torch/csrc/fields.cu",
+               "benchmarks/fields_kernel.py:253"),
 }
 # 32-bit operations per element of each kernel's work (per row and lane for
 # the replays: class decode, selects, per-byte add, hash, table write; per
-# input row for compact; per output byte for emit); place_fill and logfill
-# count theirs from the data
+# input row for compact; per output byte for emit; per pixel for fields:
+# compare, streak, hash, table lookup, four deltas, op selection, template
+# packing); place_fill and logfill count theirs from the data
 OPS_PER_ELEMENT = {"replay": 24, "replay_summary": 28, "compact": 3,
-                   "emit": 4}
+                   "emit": 4, "fields": 60}
+STREAM_DECODE = ((1 << 20, "sparse"), (4 << 20, "sparse"),
+                 (1 << 20, "rgba"))  # window_cap, image
+STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
+                 (1 << 18, 1, "rgba"), (1 << 18, 8, "rgba"))  # px, lanes
+FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
 
 
 def log(*a):
@@ -201,14 +220,14 @@ def phase3_prepare_split(runs, dev):
     blob, complete = oracle.encode(raw, desc)
     expect(complete, "the oracle did not finish the sparse stream")
     rgb = runs[0]
-    streams = (("sparse", desc, blob), ("dense", rgb["desc"],
-                                         rgb["blobs"][0]))
+    streams = (("sparse", desc, raw, blob),
+               ("dense", rgb["desc"], rgb["raws"][0], rgb["blobs"][0]))
     out = []
-    for label, d, b in streams:
+    for label, d, r, b in streams:
         dec = split.SplitDecoder(lanes=SPLIT_LANES, device=dev)
         plan = dec.plan_and_pack([b])
-        out.append(dict(label=label, desc=d, blob=b, dec=dec, plan=plan,
-                        want=oracle.decode(b, d, d.channels)))
+        out.append(dict(label=label, desc=d, raw=r, blob=b, dec=dec,
+                        plan=plan, want=oracle.decode(b, d, d.channels)))
         log(f"phase 3: split {label}: {d.width}x{d.height}, {b.size} bytes, "
             f"lanes {plan[0].shape[0]}, qb {plan[6]}, qc {plan[9]}, "
             f"n_cap {plan[7]}, max_chain {plan[8]}")
@@ -226,6 +245,71 @@ def phase3_prepare_oneshot(runs, dev):
                         blob=run["blobs"][0],
                         want=oracle.decode(run["blobs"][0], d, d.channels)))
     return out
+
+
+def phase3_prepare_stream(runs, split_runs):
+    """The streaming path's sessions (STREAM_DECODE, STREAM_ENCODE) over
+    the sparse split image and the first image of the RGBA corpus."""
+    rgba = runs[1]
+    images = {"sparse": split_runs[0],
+              "rgba": dict(desc=rgba["desc"], raw=rgba["raws"][0],
+                           blob=rgba["blobs"][0],
+                           want=oracle.decode(rgba["blobs"][0], rgba["desc"],
+                                              rgba["desc"].channels))}
+    sessions = []
+    for cap, name in STREAM_DECODE:
+        im = images[name]
+        d = im["desc"]
+        # the pixel cap of device_stream_bench.py: the image, in 8192s
+        sessions.append(dict(
+            kind="decode", im=im, cap=cap,
+            pixel_cap=-(-d.width * d.height // 8192) * 8192,
+            label=f"stream decode {name} {d.width}x{d.height} window_cap "
+                  f"{cap >> 20} MB L=96"))  # the decoder's default lanes
+    for px, lanes, name in STREAM_ENCODE:
+        im = images[name]
+        d = im["desc"]
+        sessions.append(dict(
+            kind="encode", im=im, px=px, lanes=lanes,
+            label=f"stream encode {name} {d.width}x{d.height} window 2^"
+                  f"{px.bit_length() - 1} px L={lanes}"))
+    return sessions
+
+
+def _stream_session(s, dev):
+    im = s["im"]
+    if s["kind"] == "decode":
+        return device_stream.stream_decode(
+            im["blob"], s["cap"], pixel_cap=s["pixel_cap"], device=dev)
+    return device_stream.stream_encode(im["raw"], im["desc"], s["px"],
+                                       s["lanes"], device=dev)
+
+
+def phase3_stream(s, dev):
+    got = _stream_session(s, dev)
+    if s["kind"] == "encode":
+        expect(got == s["im"]["blob"].tobytes(),
+               f"{s['label']}: stream differs from the oracle's")
+        log(f"phase 3: {s['label']}: {len(got)} bytes, equal to the oracle")
+        return
+    pixels, dec = got
+    expect(np.array_equal(pixels, s["im"]["want"]),
+           f"{s['label']}: pixels differ from the oracle's")
+    s["windows"] = dec.windows
+    for i, w in enumerate(dec.windows):
+        log(f"phase 3: {s['label']} window {i}: lanes {w['lanes']}, qb "
+            f"{w['qb']}, qc {w['qc']}, n_cap {w['n_cap']}, rounds "
+            f"{w['rounds']}, max_chain {w['max_chain']}")
+    log(f"phase 3: {s['label']}: equal to the oracle")
+
+
+def _stream_needs(s):
+    """The kernels a streaming session must launch: decode K5 and K2 (and
+    K3 where a window took the chunk domain), encode E1, K3 and K4."""
+    if s["kind"] == "encode":
+        return ("fields", "compact", "emit")
+    return ("replay_summary", "place_fill") + (
+        ("compact",) if any(w["qc"] for w in s["windows"]) else ())
 
 
 def _check_streams(run, out, lengths, ok, what):
@@ -285,7 +369,8 @@ def phase3_oneshot_encode(run):
 
 def drive(label, fn, needs, totals):
     """Run one path with every launch count at 0, then require each kernel
-    of `needs` to have launched in it; add the counts to totals."""
+    of `needs` (or of what `needs()` returns after the run) to have
+    launched in it; add the counts to totals."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     fn()
@@ -293,7 +378,7 @@ def drive(label, fn, needs, totals):
     launches = kernels.launch_counts()
     log(f"phase 4: launches on {label}: "
         f"{ {k: v for k, v in launches.items() if v} }")
-    for name in needs:
+    for name in (needs() if callable(needs) else needs):
         expect(launches[name] > 0, f"{label} never launched {name}")
     for name, n in launches.items():
         totals[name] = totals.get(name, 0) + n
@@ -457,6 +542,41 @@ def phase5_logfill(run, launches, dev):
                        8 * b * n, reads, words=b * n)
 
 
+def phase5_fields(sparse, launches, dev):
+    """E1 against its plain version at the two encode-window shapes of the
+    4096x4096 image's first window (1 x 2^18 pixels, and 16 lanes x 2^16
+    with their closed-form carries), both timed; bound: 4 bytes read and
+    8 written per pixel."""
+    times = []
+    for lanes, n in FIELDS_SHAPES:
+        packed = pixels_to_packed(torch.from_numpy(
+            sparse["raw"][: lanes * n * 3]).to(dev), 3).reshape(lanes, n)
+        prev0, run0, seen0 = fields_kernel.start_state(1, dev)
+        v, prev_in, run_in, seen_in = device_stream.lane_carries(
+            packed, lanes * n, prev0[0], run0[0], seen0[:, 0])
+        args = (packed, v, 3, prev_in, run_in, seen_in)
+        err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
+            fields_kernel.encode_fields_planes(*args),
+            fields_kernel.encode_fields_planes_reference(*args)))
+        expect(err == 0, f"fields disagrees with its plain version at "
+               f"{lanes} x {n}")
+        ms = timed_ms(lambda: fields_kernel.encode_fields_planes(*args))
+        plain_ms = timed_ms(
+            lambda: fields_kernel.encode_fields_planes_reference(*args))
+        npx = lanes * n
+        bound_s, _ = bound(12 * npx, OPS_PER_ELEMENT["fields"] * npx)
+        log(f"phase 5: fields ({lanes} x {n} px): {ms:.4f} ms, "
+            f"{npx / ms / 1e3:.1f} MPix/s; plain {plain_ms:.4f} ms; bound "
+            f"{bound_s * 1e3:.5f} ms")
+        times.append((err, ms, plain_ms, npx, bound_s * 1e3))
+    (err, ms, plain_ms, npx, _), (err_l, ms_l, plain_l, _, bound_l) = times
+    return _kernel_row(
+        "fields", launches["fields"], max(err, err_l), ms, plain_ms,
+        12 * npx, OPS_PER_ELEMENT["fields"] * npx, lanes=1, pixels=npx,
+        ms_lanes=ms_l, plain_ms_lanes=plain_l, bound_ms_lanes=bound_l,
+        lanes_shape=list(FIELDS_SHAPES[1]))
+
+
 def _time_path(what, fn, mpix, card):
     cold = timed_ms(fn, warmup=0, runs=1)
     ms = timed_ms(fn, warmup=3, runs=5)
@@ -526,15 +646,25 @@ def main():
     drive("the one-shot path (encode rgb)",
           lambda: phase3_oneshot_encode(oneshot[0]), ("compact", "emit"),
           launches)
+    streams = phase3_prepare_stream(runs, split_runs)
+    for st in streams:
+        drive(f"the streaming path ({st['label']})",
+              lambda st=st: phase3_stream(st, dev),
+              lambda st=st: _stream_needs(st), launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches)
     rows.append(phase5_split_kernels(sparse, launches))
     rows.append(phase5_logfill(oneshot[0], launches, dev))
+    rows.append(phase5_fields(sparse, launches, dev))
     for run in runs:
         phase5_pipeline_times(run, card)
     for run in split_runs:
         phase5_split_times(run, card)
     phase5_oneshot_times(oneshot, card)
+    for st in streams:
+        d = st["im"]["desc"]
+        _time_path(st["label"], lambda st=st: _stream_session(st, dev),
+                   d.width * d.height / 1e6, card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

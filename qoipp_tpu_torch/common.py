@@ -18,6 +18,7 @@ MAGIC = b"qoif"
 HEADER_SIZE = 14
 END_MARKER = bytes([0, 0, 0, 0, 0, 0, 0, 1])
 END_MARKER_SIZE = 8
+_SIZE_T_MAX = 2**64 - 1
 
 
 class Colorspace(enum.IntEnum):
@@ -45,6 +46,15 @@ class Error(enum.IntEnum):
     TOO_BIG = 3
     NOT_QOI = 4
     INVALID_DESC = 5
+    MISMATCHED_DESC = 6
+    NOT_ENOUGH_SPACE = 7
+    NOT_INITIALIZED = 8
+    ALREADY_INITIALIZED = 9
+    NOT_REGULAR_FILE = 10
+    FILE_EXISTS = 11
+    FILE_NOT_EXISTS = 12
+    IO_ERROR = 13
+    BAD_ALLOC = 14
 
 
 @dataclass(frozen=True)
@@ -72,6 +82,14 @@ class Result(Generic[T]):
         self._value = value
         self._error = error
 
+    @staticmethod
+    def ok(value: T) -> "Result[T]":
+        return Result(value=value)
+
+    @staticmethod
+    def err(error: Error) -> "Result[T]":
+        return Result(error=error)
+
     def __bool__(self) -> bool:
         return self._error is None
 
@@ -98,6 +116,20 @@ def is_valid(desc: Desc) -> bool:
     return (desc.width > 0 and desc.height > 0
             and desc.channels in (Channels.RGB, Channels.RGBA)
             and desc.colorspace in (Colorspace.SRGB, Colorspace.LINEAR))
+
+
+def count_bytes(desc: Desc) -> Result[int]:
+    """Raw byte count of the image described by desc, with the reference's
+    size_t overflow checks."""
+    if not is_valid(desc):
+        return Result.err(Error.INVALID_DESC)
+    pixel_count = desc.width * desc.height
+    if pixel_count > _SIZE_T_MAX:
+        return Result.err(Error.TOO_BIG)
+    total = pixel_count * int(desc.channels)
+    if total > _SIZE_T_MAX:
+        return Result.err(Error.TOO_BIG)
+    return Result.ok(total)
 
 
 def worst_size(desc: Desc) -> Result[int]:

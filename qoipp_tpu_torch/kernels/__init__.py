@@ -1,6 +1,6 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
-The port's six kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
+The port's seven kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
 sm_90a behind a plain C interface.  On first use they are built with
 ``nvcc`` (one compiler process per source, all at once, then one link)
 into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the root of the
@@ -29,13 +29,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
-           "logfill.cu")
+           "logfill.cu", "fields.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
-            "replay_summary": 0, "logfill": 0}
+            "replay_summary": 0, "logfill": 0, "fields": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -51,6 +51,9 @@ _SIGNATURES = {
     "qk_emit": [_P] * 4 + [_I, _L, _L, _P],
     # words, out, B, n, stream
     "qk_logfill": [_P, _P, _I, _L, _P],
+    # packed, n_px, prev_in, run_in, seen_in, tlo, thn, run_out, seen_out,
+    # B, Nb, channels, stream
+    "qk_fields": [_P] * 9 + [_I, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -18,7 +18,13 @@ bit-exact.  The cases:
   logfill:    gaps of exactly 63 and 64, gaps across the kernel's tile
               boundary, a flag at column 0, a row with no flag, a row
               length that is not a multiple of the tile, and random
-              unflagged words (where the kernel still equals the passes).
+              unflagged words (where the kernel still equals the passes);
+  fields:     RGB and RGBA; streaks whose 62nd pixel is the last of a tile
+              and of a run_out block or the first of a tile, INDEX hits on
+              the carried table only and on pixels three tiles back,
+              carried runs of 61 and 30 entering at position 0, n_px
+              ending mid-tile and n_px = 1, alpha flips, a one-colour row,
+              a ragged last tile, every row with its own n_px and carry.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import compact_kernel, emit_kernel, place_kernel, replay_kernel
+from ..ops import (compact_kernel, emit_kernel, fields_kernel, place_kernel,
+                   replay_kernel)
+from ..ops.bitops import hash6
 
 
 def _t(a, device):
@@ -172,9 +180,82 @@ def _logfill(device) -> int:
     return err
 
 
+def mixed_pixels(rng, n):
+    """(n,) uint32 pixel words of every op class: runs of 1..200 equal
+    pixels, a 6-colour palette (INDEX), small and wrapping deltas
+    (DIFF/LUMA), noise (RGB), with rare alpha changes."""
+    out = np.empty(n, np.uint32)
+    pal = _words(rng, 6) | np.uint32(0xFF000000)
+    cur = np.uint32(0xFF000000)
+    i = 0
+    while i < n:
+        kind = rng.integers(0, 5)
+        ln = int(rng.integers(1, 200)) if kind == 0 else 1
+        if kind == 1:
+            cur = pal[rng.integers(0, 6)]
+        elif kind == 2:
+            d = rng.integers(-3, 3, 3) & 0xFF
+            c = [(int(cur) >> (8 * k)) & 0xFF for k in range(4)]
+            c[:3] = [(c[k] + int(d[k])) & 0xFF for k in range(3)]
+            cur = np.uint32(c[0] | c[1] << 8 | c[2] << 16 | c[3] << 24)
+        elif kind == 3:
+            cur = _words(rng, 1)[0] | np.uint32(0xFF000000)
+        if rng.random() < 0.02:
+            cur = (cur & np.uint32(0xFFFFFF)) | np.uint32(
+                int(rng.integers(0, 256)) << 24)
+        out[i : i + ln] = cur
+        i += ln
+    return out
+
+
+def _fields(device) -> int:
+    rng = np.random.default_rng(7)
+    tile, blk = 1024, fields_kernel.BLK  # csrc/fields.cu kThreads, run_out
+    b, nb = 8, 5 * tile + 64  # a ragged last tile and run_out block
+    px = np.stack([mixed_pixels(rng, nb) for _ in range(b)])
+    n_px = np.full(b, nb, np.int64)
+    prev = _words(rng, b) | np.uint32(0xFF000000)
+    run = rng.integers(0, 62, b)
+    seen = _words(rng, (64, b))
+    # row 0: streaks reaching 62 on the last pixel of a tile and on the
+    # first pixel of the next tile, and across a run_out block edge
+    for start in (tile - 62, blk - 63, 3 * tile - 62):
+        px[0, start : start + 130] = px[0, start - 1] ^ np.uint32(0x10101)
+    # row 1: words held only by the carried table (slots the row has not
+    # written yet), then, after a run through two tiles, hits on pixels of
+    # the first tile
+    pal = _words(rng, 8)
+    seen[hash6(_t(pal, "cpu")).numpy(), 1] = pal
+    px[1, :64] = pal[rng.integers(0, 8, 64)]
+    px[1, 64:124] = _words(rng, 60)
+    px[1, 124 : 3 * tile] = px[1, 123]
+    hits = np.arange(3 * tile + 5, nb, 37)
+    px[1, hits] = px[1, 64 + np.arange(hits.size) % 60]
+    # rows 2-3: a carried run entering at position 0: 61 (flush at 0) and 30
+    for row, r in ((2, 61), (3, 30)):
+        run[row] = r
+        px[row, :90] = prev[row]
+    # rows 4-5: n_px ending mid-tile, and a single pixel
+    n_px[4], n_px[5] = 2 * tile + 517, 1
+    # row 6: alpha flips on every other pixel of a stretch
+    px[6, 100:400:2] ^= np.uint32(0x80000000)
+    # row 7: a row of one colour (one long run through every tile)
+    px[7] = prev[7]
+    args = [_t(x, device) for x in (px, n_px.astype(np.int32), prev,
+                                    run.astype(np.int32), seen)]
+    err = 0
+    for channels in (3, 4):
+        got = fields_kernel.encode_fields_planes(args[0], args[1], channels,
+                                                 *args[2:])
+        want = fields_kernel.encode_fields_planes_reference(
+            args[0], args[1], channels, *args[2:])
+        err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    return err
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
          "emit": _emit, "replay_summary": _replay_summary,
-         "logfill": _logfill}
+         "logfill": _logfill, "fields": _fields}
 
 
 def check(name: str, device) -> int:

@@ -20,7 +20,9 @@ from guessed in-states, and reconciles the seams by a fixpoint:
 Chunk compaction (K3) moves replay and placement from the byte domain to
 the chunk domain once, outside the fixpoint, where the stream is sparse
 enough to gain; K2 places the pixels.  The host planner is the JAX
-package's, line for line, so both packages make the same plans.
+package's, line for line, so both packages make the same plans.  The
+streaming decoder's windows run the same fixpoint as one chain whose head
+re-enters the carried state (``_decode_window_lanes``).
 """
 
 from __future__ import annotations
@@ -79,28 +81,36 @@ def initial_guess(lanes: int, device):
     return guess[:1].contiguous(), guess[1:].contiguous()
 
 
-def propagate(heads, out_p, out_s, pupd, swr):
+def propagate(heads, out_p, out_s, pupd, swr, base=None):
     """Each lane's implied in-state from the lanes' out-states and
     summaries, all as the replay kernel gives them: out_p/pupd (1, L),
-    out_s/swr (64, L); heads (L,) bool marks the lanes that start a chain.
+    out_s/swr (64, L); heads (L,) bool marks the lanes that start a chain;
+    base (65,) int32 is the state a chain starts from (prev, then the 64
+    table slots), by default the decoder's initial state.
 
     Component c of lane k's in-state is out[j][c] for the largest j < k in
-    k's chain whose summary bit for c is set, else the initial state: a
-    segmented last-writer search along the lane axis, by cummax.
-    Returns (in_p (1, L), in_s (64, L))."""
+    k's chain whose summary bit for c is set, else base[c]: a segmented
+    last-writer search along the lane axis, by cummax.
+    Returns (in_p (1, L), in_s (64, L), fin (65,)), fin being the state
+    after the last lane, by the same rule."""
     lanes = heads.shape[0]
     dev = heads.device
+    if base is None:
+        base = _base_state(dev)
     j = torch.arange(lanes, device=dev)
     bits = torch.cat([pupd, swr]) != 0  # (65, L)
     outs = torch.cat([out_p, out_s])
-    last = torch.cummax(torch.where(bits, j, -1), dim=1).values
-    last = torch.cat([torch.full((65, 1), -1, dtype=last.dtype, device=dev),
-                      last[:, :-1]], dim=1)  # writers strictly before k
+    upto = torch.cummax(torch.where(bits, j, -1), dim=1).values
+    last = torch.cat([torch.full((65, 1), -1, dtype=upto.dtype, device=dev),
+                      upto[:, :-1]], dim=1)  # writers strictly before k
     start = torch.cummax(torch.where(heads, j, -1), dim=0).values
     inner = (last >= 0) & (last >= start[None, :])
     state = torch.where(inner, torch.gather(outs, 1, last.clamp(min=0)),
-                        _base_state(dev)[:, None])
-    return state[:1], state[1:]
+                        base[:, None])
+    fl = upto[:, -1:]
+    fin = torch.where((fl >= 0) & (fl >= start[-1]),
+                      torch.gather(outs, 1, fl.clamp(min=0)), base[:, None])
+    return state[:1], state[1:], fin[:, 0]
 
 
 def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
@@ -120,17 +130,18 @@ def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
     return meta.T.contiguous(), val.T.contiguous(), pix_before.contiguous()
 
 
-def seam_fixpoint(meta_t, val_t, heads, max_chain: int):
+def seam_fixpoint(meta_t, val_t, heads, max_chain: int, base=None):
     """Replay rounds of K5 until every lane's in-state is implied by its
-    chain, at most max_chain + 2 of them, one host sync each.  Returns the
-    emits (width, L) of the round that found the fixpoint, and the round
-    count."""
+    chain, at most max_chain + 2 of them, one host sync each; chains start
+    from base (propagate's).  Returns the emits (width, L) of the round
+    that found the fixpoint, the round count, and the state (65,) after the
+    last lane in that round."""
     in_p, in_s = initial_guess(meta_t.shape[1], meta_t.device)
     rounds = 0
     while True:
         emits, out_p, out_s, pupd, swr = rk.replay_batch_summary(
             meta_t, val_t, in_p, in_s)
-        want_p, want_s = propagate(heads, out_p, out_s, pupd, swr)
+        want_p, want_s, fin = propagate(heads, out_p, out_s, pupd, swr, base)
         rounds += 1
         # emits came from in_p/in_s: at the fixpoint they are exact
         if bool((want_p == in_p).all() & (want_s == in_s).all()):
@@ -138,7 +149,7 @@ def seam_fixpoint(meta_t, val_t, heads, max_chain: int):
         if rounds >= max_chain + 2:
             break
         in_p, in_s = want_p, want_s
-    return emits, rounds
+    return emits, rounds, fin
 
 
 def _decode_split_lanes(regions, heads, chunks_sizes, px_budgets,
@@ -151,9 +162,49 @@ def _decode_split_lanes(regions, heads, chunks_sizes, px_budgets,
     Returns ((L, n_cap) int32 packed pixels per lane, rounds)."""
     meta_t, val_t, pix_before = lane_rows(regions, chunks_sizes, px_budgets,
                                           qb, n_cap, qc)
-    emits, rounds = seam_fixpoint(meta_t, val_t, heads, max_chain)
+    emits, rounds, _ = seam_fixpoint(meta_t, val_t, heads, max_chain)
     return (place_kernel.place_fill(pix_before, emits.T.contiguous(), n_cap),
             rounds)
+
+
+def _decode_window_lanes(regions, seg_lens, prev0, seen_col0, max_chain: int,
+                         qb: int, n_cap: int, qc: int = 0):
+    """The streaming decoder's window: ONE chain over the lanes, whose head
+    re-enters the carried state (prev0 (1,), seen_col0 (64,) int32), and
+    lanes holding segments of a byte window whose last chunk may be torn.
+    A chunk counts only if it ends inside its lane's seg_len (the driver
+    feeds the torn tail again).  regions: (L, qb + 8) uint8, L a multiple
+    of 8; seg_lens: (L,) int32; qc > 0 takes the chunk domain.
+
+    Returns (packed (L, n_cap) int32, n_pix (L,), consumed (L,), prev_out
+    (1,), seen_out (64,), rounds).  Zero-length lanes pass the state
+    through, so the state after the last lane is the window's carry."""
+    q = torch.arange(qb, dtype=torch.int32, device=regions.device)[None, :]
+    body = regions[:, :qb]
+    lens = boundary.chunk_len_of(body).to(torch.int32)
+    complete = boundary.chunk_starts_batch(body) & (q + lens
+                                                    <= seg_lens[:, None])
+    tag = body.to(torch.int32)
+    is_run = ((tag & 0xC0) == 0xC0) & (tag != 0xFE) & (tag != 0xFF)
+    produced = torch.where(complete, torch.where(is_run, (tag & 0x3F) + 1, 1),
+                           0)
+    pix_before = torch.cumsum(produced, dim=1, dtype=torch.int32) - produced
+    consumed = torch.where(complete, q + lens, 0).amax(dim=1)
+    n_pix = produced.sum(dim=1, dtype=torch.int32)
+
+    meta, val = dec_ops.fields_dense_batch(regions, complete)
+    if qc:
+        meta, val, pix_before = _compact_chunks(meta, val, pix_before,
+                                                complete, n_cap, qc)
+    heads = torch.zeros(regions.shape[0], dtype=torch.bool,
+                        device=regions.device)
+    heads[0] = True
+    emits, rounds, fin = seam_fixpoint(
+        meta.T.contiguous(), val.T.contiguous(), heads, max_chain,
+        torch.cat([prev0.reshape(1), seen_col0.reshape(64)]))
+    packed = place_kernel.place_fill(pix_before.contiguous(),
+                                     emits.T.contiguous(), n_cap)
+    return packed, n_pix, consumed, fin[:1], fin[1:], rounds
 
 
 class SplitDecoder:

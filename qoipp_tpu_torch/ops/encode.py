@@ -58,16 +58,20 @@ def bucket_size(n: int) -> int:
     return b
 
 
-def _last_same_hash_value(packed, h, noneq):
+def _last_same_hash_value(packed, h, noneq, incoming=None):
     """For each position i of each row: the word of the most recent j < i
-    with noneq[j] and h[j] == h[i], or 0 (the encoder's zero-initialised
-    table) when there is none.
+    with noneq[j] and h[j] == h[i]; where there is none, incoming[h[i]],
+    the table carried into the row (a streaming window's), by default the
+    encoder's zero-initialised table.
 
-    packed/h/noneq: (B, N) or (N,).  A stable sort of each row by hash puts
-    every hash's positions in order, so a position's predecessor is the
-    last noneq entry before it inside its hash group."""
+    packed/h/noneq: (B, N) or (N,); incoming: (64,) for every row, or
+    (B, 64).  A stable sort of each row by hash puts every hash's positions
+    in order, so a position's predecessor is the last noneq entry before it
+    inside its hash group."""
     if packed.dim() == 1:
-        return _last_same_hash_value(packed[None], h[None], noneq[None])[0]
+        inc = None if incoming is None else incoming.reshape(1, 64)
+        return _last_same_hash_value(packed[None], h[None], noneq[None],
+                                     inc)[0]
     n = packed.shape[1]
     order = torch.sort(h.to(torch.int64), dim=1, stable=True).indices
     sh = torch.gather(h, 1, order)
@@ -82,8 +86,75 @@ def _last_same_hash_value(packed, h, noneq):
     group_start = torch.cummax(torch.where(new_group, j, 0), dim=1).values
     found = last >= group_start
     pred = torch.gather(torch.gather(packed, 1, order), 1, last.clamp(min=0))
+    if incoming is None:
+        fallback = 0
+    else:
+        inc = incoming.reshape(-1, 64).expand(packed.shape[0], 64)
+        fallback = torch.gather(inc, 1, sh.to(torch.int64))
     return torch.empty_like(packed).scatter_(1, order,
-                                             torch.where(found, pred, 0))
+                                             torch.where(found, pred, fallback))
+
+
+def op_bytes(px, prev, nq, table_val, h, channels: int):
+    """Op selection of the differing pixels nq (precedence INDEX > RGBA >
+    DIFF > LUMA > RGB) -> (own_len, (o0, ..., o4)): each pixel's op bytes
+    and their count, int32; every other pixel gets 0s."""
+    is_index = nq & (table_val == px)
+    a_cur = unpack_channel(px, 3)
+    if channels == 4:
+        is_rgba = nq & ~is_index & (a_cur != unpack_channel(prev, 3))
+    else:
+        is_rgba = torch.zeros_like(nq)
+
+    dr = to_int8(unpack_channel(px, 0) - unpack_channel(prev, 0))
+    dg = to_int8(unpack_channel(px, 1) - unpack_channel(prev, 1))
+    db = to_int8(unpack_channel(px, 2) - unpack_channel(prev, 2))
+    dr_dg = to_int8(dr - dg)
+    db_dg = to_int8(db - dg)
+    in_diff = ((dr >= -2) & (dr <= 1) & (dg >= -2) & (dg <= 1)
+               & (db >= -2) & (db <= 1))
+    in_luma = ((dg >= -32) & (dg <= 31) & (dr_dg >= -8) & (dr_dg <= 7)
+               & (db_dg >= -8) & (db_dg <= 7))
+    rest = nq & ~is_index & ~is_rgba
+    is_diff = rest & in_diff
+    is_luma = rest & ~in_diff & in_luma
+    is_rgb = rest & ~in_diff & ~in_luma
+    own_len = torch.where(
+        is_index, 1, torch.where(
+            is_rgba, 5, torch.where(
+                is_diff, 1, torch.where(is_luma, 2,
+                                        torch.where(is_rgb, 4, 0))))
+    ).to(torch.int32)
+
+    r8, g8, b8 = (unpack_channel(px, c) for c in range(3))
+    diff_byte = TAG_DIFF | ((dr + 2) << 4) | ((dg + 2) << 2) | (db + 2)
+    luma0 = TAG_LUMA | (dg + 32)
+    luma1 = ((dr_dg + 8) << 4) | (db_dg + 8)
+    o0 = torch.where(
+        is_index, h, torch.where(
+            is_rgba, TAG_RGBA, torch.where(
+                is_diff, diff_byte, torch.where(
+                    is_luma, luma0, torch.where(is_rgb, TAG_RGB, 0))))
+    ).to(torch.int32)
+    rgbx = is_rgba | is_rgb
+    o1 = torch.where(rgbx, r8, torch.where(is_luma, luma1, 0))
+    o2 = torch.where(rgbx, g8, 0)
+    o3 = torch.where(rgbx, b8, 0)
+    o4 = torch.where(is_rgba, a_cur, 0)
+    return own_len, (o0, o1, o2, o3, o4)
+
+
+def pack_templates(own_len, own, has_run, run_byte):
+    """The 6-byte templates as two int32 planes: tlo = bytes 0-3, thn =
+    bytes 4-5 | byte count << 16.  Where has_run, run_byte comes first and
+    the op bytes follow it."""
+    o0, o1, o2, o3, o4 = own
+    bytes6 = [torch.where(has_run, hi, lo) for hi, lo in
+              zip((run_byte, o0, o1, o2, o3, o4), (o0, o1, o2, o3, o4, 0))]
+    nbytes = own_len + has_run.to(torch.int32)
+    tlo = bytes6[0] | (bytes6[1] << 8) | (bytes6[2] << 16) | (bytes6[3] << 24)
+    thn = bytes6[4] | (bytes6[5] << 8) | (nbytes << 16)
+    return tlo, thn
 
 
 def chunk_positions(packed, n_px: int):
@@ -133,59 +204,13 @@ def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int):
 
     h = hash6(pk_c)
     table_val = _last_same_hash_value(pk_c, h, nq_c)
-    is_index = nq_c & (table_val == pk_c)
-
-    a_cur = unpack_channel(pk_c, 3)
-    if channels == 4:
-        is_rgba = nq_c & ~is_index & (a_cur != unpack_channel(prev_c, 3))
-    else:
-        is_rgba = torch.zeros_like(nq_c)
-
-    dr = to_int8(unpack_channel(pk_c, 0) - unpack_channel(prev_c, 0))
-    dg = to_int8(unpack_channel(pk_c, 1) - unpack_channel(prev_c, 1))
-    db = to_int8(unpack_channel(pk_c, 2) - unpack_channel(prev_c, 2))
-    dr_dg = to_int8(dr - dg)
-    db_dg = to_int8(db - dg)
-    in_diff = ((dr >= -2) & (dr <= 1) & (dg >= -2) & (dg <= 1)
-               & (db >= -2) & (db <= 1))
-    in_luma = ((dg >= -32) & (dg <= 31) & (dr_dg >= -8) & (dr_dg <= 7)
-               & (db_dg >= -8) & (db_dg <= 7))
-    rest = nq_c & ~is_index & ~is_rgba
-    is_diff = rest & in_diff
-    is_luma = rest & ~in_diff & in_luma
-    is_rgb = rest & ~in_diff & ~in_luma
-    own_len = torch.where(
-        is_index, 1, torch.where(
-            is_rgba, 5, torch.where(
-                is_diff, 1, torch.where(is_luma, 2,
-                                        torch.where(is_rgb, 4, 0))))
-    ).to(torch.int32)
-
-    r8, g8, b8 = (unpack_channel(pk_c, c) for c in range(3))
-    diff_byte = TAG_DIFF | ((dr + 2) << 4) | ((dg + 2) << 2) | (db + 2)
-    luma0 = TAG_LUMA | (dg + 32)
-    luma1 = ((dr_dg + 8) << 4) | (db_dg + 8)
-    o0 = torch.where(
-        is_index, h, torch.where(
-            is_rgba, TAG_RGBA, torch.where(
-                is_diff, diff_byte, torch.where(
-                    is_luma, luma0, torch.where(is_rgb, TAG_RGB, 0))))
-    ).to(torch.int32)
-    rgbx = is_rgba | is_rgb
-    o1 = torch.where(rgbx, r8, torch.where(is_luma, luma1, 0))
-    o2 = torch.where(rgbx, g8, 0)
-    o3 = torch.where(rgbx, b8, 0)
-    o4 = torch.where(is_rgba, a_cur, 0)
+    own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, channels)
 
     # a differing chunk flushes its pending run first (gap in [1, 61]); a
     # flush row IS the run (RUN 62: 61 equal pixels strictly before it)
     run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
     has_run = torch.where(nq_c, gap > 0, valid_c)
-    bytes6 = [torch.where(has_run, hi, lo) for hi, lo in
-              zip((run_byte, o0, o1, o2, o3, o4), (o0, o1, o2, o3, o4, 0))]
-    nbytes_c = own_len + has_run.to(torch.int32)
-    tlo = bytes6[0] | (bytes6[1] << 8) | (bytes6[2] << 16) | (bytes6[3] << 24)
-    thn = bytes6[4] | (bytes6[5] << 8) | (nbytes_c << 16)
+    tlo, thn = pack_templates(own_len, own, has_run, run_byte)
 
     # trailing run + end marker ride in as two appended rows; a third
     # 1-byte sentinel row keeps the last of them a covered row in K4

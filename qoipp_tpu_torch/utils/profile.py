@@ -8,8 +8,11 @@ busy time (the union of kernel and copy intervals), the span from the
 first to the last of them, the idle share of that span, and the busy
 time by kernel group with launches.  The inputs are the smoke run's:
 BatchPipeline on 16 RGB and 8 RGBA 1920x1088 images, SplitDecoder(96) on
-the 4096x4096 sparse and the 1920x1088 dense stream, and the one-shot
-codec on one RGB and one RGBA 1920x1088 image.
+the 4096x4096 sparse and the 1920x1088 dense stream, the one-shot
+codec on one RGB and one RGBA 1920x1088 image, and the streaming codec on
+the 4096x4096 image (decode in 1 MB and 4 MB windows, encode in 2^18-pixel
+windows at one lane and in 2^20-pixel windows at 16 lanes) and on the RGBA
+image (encode in 2^18-pixel windows at 1 and 8 lanes).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ GROUPS = (
     ("K3 compact", "compact_kernel"),
     ("K4 emit", "emit_kernel"),
     ("K6 logfill", "logfill"),
+    ("E1 fields", "fields_kernel"),
     ("copies", "memcpy"),
     ("fills", "memset"),
     ("scans (cumsum, cummax)", "scan"),
@@ -125,6 +129,23 @@ def _paths(dev):
     label, d, raw, _ = firsts[0]
     paths.append((f"encode_single {label}",
                   lambda d=d, r=raw: backend.encode_single(r, d, device=dev)))
+    from ..ops.device_stream import stream_decode, stream_encode
+
+    big = make_image(4096, 4096, seed=3)
+    for cap in (1 << 20, 4 << 20):
+        paths.append((f"stream decode 4096x4096 {cap >> 20} MB windows L=96",
+                      lambda c=cap: stream_decode(sparse, c,
+                                                  pixel_cap=4096 * 4096,
+                                                  device=dev)))
+    for window_px, lanes in ((1 << 18, 1), (1 << 20, 16)):
+        paths.append((f"stream encode 4096x4096 {window_px} px L={lanes}",
+                      lambda w=window_px, n=lanes: stream_encode(
+                          big, desc, w, n, device=dev)))
+    label, d, raw, _ = firsts[1]
+    for lanes in (1, 8):
+        paths.append((f"stream encode {label} {1 << 18} px L={lanes}",
+                      lambda n=lanes, r=raw, d=d: stream_encode(
+                          r, d, 1 << 18, n, device=dev)))
     return paths
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
-chip_smoke.py's phase 2), and the batch pipeline, the split decoder and
-the one-shot codec at a small size against the port's oracle.  Without a
+chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
+one-shot codec and the streaming codec at a small size against the port's
+oracle.  Without a
 CUDA device every test here skips.
 
 Run on a GPU machine: python -m pytest tests/test_torch_cuda.py -q"""
@@ -92,6 +93,26 @@ def test_oneshot_on_card_matches_oracle(cuda, channels):
     for name in ("replay", "compact", "emit") + (
             ("logfill",) if channels == 3 else ()):
         assert after[name] > before[name]
+
+
+@pytest.mark.parametrize("channels,lanes", [(3, 1), (3, 16), (4, 8)])
+def test_stream_on_card_matches_oracle(cuda, channels, lanes):
+    from qoipp_tpu_torch.ops.device_stream import stream_decode, stream_encode
+
+    desc, raws, blobs = make_corpus(1, 320, 200, seed=channels,
+                                    channels=channels)
+    before = kernels.launch_counts()
+    got = stream_encode(raws[0], desc, 1 << 13, lanes)
+    assert got == blobs[0].tobytes()
+    mid = kernels.launch_counts()
+    for name in ("fields", "compact", "emit"):
+        assert mid[name] > before[name]
+    pixels, dec = stream_decode(blobs[0], 1 << 14, feed=5000)
+    assert np.array_equal(pixels, raws[0])
+    assert dec.device.type == "cuda" and len(dec.windows) > 1
+    after = kernels.launch_counts()
+    for name in ("replay_summary", "place_fill"):
+        assert after[name] > mid[name]
 
 
 def test_wrapper_rejects_bad_input(cuda):

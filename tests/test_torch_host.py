@@ -55,6 +55,35 @@ def test_read_header_errors_match_jax(data):
     assert int(got.error()) == int(want.error())
 
 
+def test_error_codes_match_jax():
+    assert {e.name: int(e) for e in common.Error} == {
+        e.name: int(e) for e in jcommon.Error}
+
+
+@pytest.mark.parametrize("desc", [
+    common.Desc(29, 17, common.Channels.RGB),
+    common.Desc(4096, 4096, common.Channels.RGBA, common.Colorspace.LINEAR),
+    common.Desc(0, 17, common.Channels.RGB),
+    common.Desc(1 << 40, 1 << 40, common.Channels.RGBA),
+])
+def test_count_bytes_matches_jax(desc):
+    got, want = common.count_bytes(desc), jcommon.count_bytes(_jdesc(desc))
+    assert bool(got) == bool(want)
+    if got:
+        assert got.value() == want.value()
+    else:
+        assert int(got.error()) == int(want.error())
+
+
+def test_result_constructors():
+    ok = common.Result.ok(b"qoif")
+    assert ok and ok.value() == b"qoif"
+    err = common.Result.err(common.Error.NOT_INITIALIZED)
+    assert not err and err.error() == common.Error.NOT_INITIALIZED
+    with pytest.raises(ValueError):
+        err.value()
+
+
 @pytest.mark.parametrize("n_segments,lookahead,prefer_rgba", [
     (1, 0, False), (7, 0, False), (16, 64, False), (16, 64, True)])
 def test_split_points_match_jax(n_segments, lookahead, prefer_rgba):

@@ -1,23 +1,34 @@
-"""The port's four kernel modules (K1 replay, K2 place+fill, K3 compact, K4
-emit) against the JAX package's Pallas kernels, bit-exact.  On CPU tensors
-each wrapper takes its kernel's plain version; the JAX side runs its Pallas
+"""The port's kernel modules (K1 replay, K2 place+fill, K3 compact, K4
+emit, K5 replay with summaries, K6 log-fill, E1 the encoder's field pass)
+against the JAX package's Pallas kernels, bit-exact.  On CPU tensors each
+wrapper takes its kernel's plain version; the JAX side runs its Pallas
 kernels in interpret mode, as the JAX tests do."""
 
+import importlib.util
+from pathlib import Path
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from qoipp_tpu.ops import compact_kernel as jck
+from qoipp_tpu.ops import encode as jenc
 from qoipp_tpu.ops import emit_kernel as jek
 from qoipp_tpu.ops import place_kernel as jpk
 from qoipp_tpu.ops import replay_kernel as jrk
 from qoipp_tpu_torch import convert
-from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
-from qoipp_tpu_torch.ops import compact_kernel, emit_kernel, place_kernel
-from qoipp_tpu_torch.ops import replay_kernel
+from qoipp_tpu_torch.convert import words_to_numpy
+from qoipp_tpu_torch.kernels.selfcheck import mixed_pixels
+from qoipp_tpu_torch.ops import compact_kernel, emit_kernel, fields_kernel
+from qoipp_tpu_torch.ops import place_kernel, replay_kernel
+from qoipp_tpu_torch.ops.bitops import hash6
 
 torch.set_num_threads(1)
+
+def words_to_torch(words):
+    return convert.words_to_torch(words, device="cpu")
 
 
 def _words(rng, shape):
@@ -46,7 +57,7 @@ def test_replay_batch_carry(seed, p_rst):
     prev, seen = _words(rng, (1, b)), _words(rng, (64, b))
     want = jrk.replay_batch_carry(jnp.asarray(meta), jnp.asarray(val),
                                   jnp.asarray(prev), jnp.asarray(seen))
-    tprev, tseen = convert.carry_from_jax(prev, seen)
+    tprev, tseen = convert.carry_from_jax(prev, seen, device="cpu")
     got = replay_kernel.replay_batch_carry(words_to_torch(meta),
                                            words_to_torch(val), tprev, tseen)
     for w, g in zip(want, got):
@@ -166,7 +177,7 @@ def test_replay_batch_summary(seed, p_rst):
     prev, seen = _words(rng, (1, b)), _words(rng, (64, b))
     want = jrk.replay_batch_summary(jnp.asarray(meta), jnp.asarray(val),
                                     jnp.asarray(prev), jnp.asarray(seen))
-    tprev, tseen = convert.carry_from_jax(prev, seen)
+    tprev, tseen = convert.carry_from_jax(prev, seen, device="cpu")
     got = replay_kernel.replay_batch_summary(
         words_to_torch(meta), words_to_torch(val), tprev, tseen)
     assert len(got) == 5
@@ -223,3 +234,85 @@ def test_logfill_window_rule(zero_unflagged):
                           else words[i, w - 63] if w >= 63 else 0)
     got = replay_kernel.logfill_batch(words_to_torch(words))
     assert np.array_equal(want, words_to_numpy(got))
+
+
+def _benchmark_module(name):
+    """A module of benchmarks/, loaded by path as its own tests load it."""
+    path = Path(__file__).resolve().parent.parent / "benchmarks" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmarks_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_fields_planes_match_jax_kernel(channels):
+    # E1 itself, in interpret mode, on the content classes of its own
+    # differential test: 6 rows of 3 blocks, a partial last block
+    fk = _benchmark_module("fields_kernel")
+    contents = _benchmark_module("test_fields_kernel").contents
+    nb = 3 * fk.BLK
+    n_px = nb - 777
+    imgs = contents(np.random.default_rng(n_px * channels), n_px, channels)
+    words = np.zeros((len(imgs), nb), np.uint32)
+    for i, im in enumerate(imgs):
+        if channels == 3:
+            im[:, 3] = 255
+        words[i, :n_px] = im.astype(np.uint32) @ (1 << np.arange(0, 32, 8,
+                                                             dtype=np.uint32))
+    want = fk.encode_fields_planes(jnp.asarray(words), jnp.int32(n_px),
+                                   channels)
+    got = fields_kernel.encode_fields_planes(
+        words_to_torch(words), torch.full((len(imgs),), n_px,
+                                          dtype=torch.int32), channels)
+    for w, g in zip(want, got):  # tlo, thn, run_out
+        assert np.array_equal(_np(w), words_to_numpy(g))
+
+
+def _seen_after(px, n_px, prev, seen):
+    """The encoder's table after n_px pixels, by the sequential rule: a
+    pixel that differs from the one before it writes its hash slot."""
+    table = seen.copy()
+    h = hash6(words_to_torch(px)).numpy()
+    for i in range(n_px):
+        if px[i] != (px[i - 1] if i else prev):
+            table[h[i]] = px[i]
+    return table
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_fields_planes_match_encode_fields_with_carries(channels):
+    # the plain version against _encode_fields with random carries: prev,
+    # run 0..61 (61 entering on a repeat of prev: a flush at position 0)
+    # and a carried table, rows of their own n_px
+    rng = np.random.default_rng(40 + channels)
+    n_pxs = [4416, 4000, 2048, 1, 777]
+    b, nb = len(n_pxs), 4416
+    px = np.stack([mixed_pixels(rng, nb) for _ in range(b)])
+    if channels == 3:
+        px |= np.uint32(0xFF000000)
+    prev = px[:, 0].copy()
+    prev[1:] = _words(rng, b - 1)
+    run = rng.integers(0, 62, b)
+    run[0] = 61
+    seen = _words(rng, (b, 64))
+    seen[2, hash6(words_to_torch(px[2, :40])).numpy()] = px[2, :40]
+    fields = jax.jit(jenc._encode_fields, static_argnames="channels")
+    got = fields_kernel.encode_fields_planes(
+        words_to_torch(px), torch.tensor(n_pxs, dtype=torch.int32), channels,
+        words_to_torch(prev), torch.from_numpy(run.astype(np.int32)),
+        words_to_torch(seen.T))
+    tlo, thn, run_out, seen_out = (words_to_numpy(x) for x in got)
+    for i, n in enumerate(n_pxs):
+        template, nbytes, tail, has_trail = fields(
+            jnp.asarray(px[i]), jnp.int32(n), channels=channels,
+            carry_prev=jnp.uint32(prev[i]), carry_run=jnp.uint32(run[i]),
+            carry_seen=jnp.asarray(seen[i]))
+        wlo, whn = jenc._pack_template_planes(template, nbytes)
+        assert np.array_equal(tlo[i, :n], _np(wlo)[:n])
+        assert np.array_equal(thn[i, :n], _np(whn)[:n])
+        assert not tlo[i, n:].any() and not thn[i, n:].any()
+        trail = (int(_np(tail)[0]) & 0x3F) + 1 if bool(has_trail) else 0
+        assert run_out[i, (n - 1) // fields_kernel.BLK] == trail
+        assert np.array_equal(seen_out[:, i],
+                              _seen_after(px[i], n, prev[i], seen[i]))

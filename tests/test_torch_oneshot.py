@@ -16,11 +16,15 @@ from qoipp_tpu.ops import decode as jdec
 from qoipp_tpu.ops import fill as jfill
 from qoipp_tpu.ops import jax_backend
 from qoipp_tpu_torch.common import Channels, Desc
-from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch import convert
+from qoipp_tpu_torch.convert import words_to_numpy
 from qoipp_tpu_torch.ops import backend, decode, encode, fill
 from qoipp_tpu_torch.utils.corpus import make_corpus
 
 torch.set_num_threads(1)
+
+def words_to_torch(words):
+    return convert.words_to_torch(words, device="cpu")
 
 DESC3 = Desc(29, 17, Channels.RGB)
 DESC4 = Desc(24, 14, Channels.RGBA)

@@ -18,10 +18,13 @@ from qoipp_tpu.ops import boundary as jbnd
 from qoipp_tpu.ops import decode as jdec
 from qoipp_tpu.ops import encode as jenc
 from qoipp_tpu_torch import convert
-from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.convert import words_to_numpy
 from qoipp_tpu_torch.ops import bitops, boundary, decode, encode
 
 torch.set_num_threads(1)
+
+def words_to_torch(words):
+    return convert.words_to_torch(words, device="cpu")
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -132,16 +135,80 @@ def test_last_same_hash_value(density):
     assert np.array_equal(_np(want[1]), words_to_numpy(one))
 
 
+@pytest.mark.parametrize("density", [0.1, 0.7])
+def test_last_same_hash_value_incoming(density):
+    # a streaming window's carried table: pixels with no same-hash
+    # predecessor in the row read it
+    b, n = 3, 512
+    rng = np.random.default_rng(20 + int(density * 10))
+    palette = _words(rng, 40)
+    packed = palette[rng.integers(0, palette.size, (b, n))]
+    noneq = rng.random((b, n)) < density
+    h = _np(jbit.hash6(jnp.asarray(packed))).astype(np.int32)
+    incoming = _words(rng, (b, 64))
+    for i in range(b):  # half the palette sits in the carried table
+        incoming[i, h[0, :20]] = packed[0, :20]
+    want = jax.vmap(jenc._last_same_hash_value)(
+        jnp.asarray(packed), jnp.asarray(h), jnp.asarray(noneq),
+        jnp.asarray(incoming))
+    got = encode._last_same_hash_value(
+        words_to_torch(packed), torch.from_numpy(h), torch.from_numpy(noneq),
+        words_to_torch(incoming))
+    assert np.array_equal(_np(want), words_to_numpy(got))
+    one = encode._last_same_hash_value(
+        words_to_torch(packed[1]), torch.from_numpy(h[1]),
+        torch.from_numpy(noneq[1]), words_to_torch(incoming[1]))
+    assert np.array_equal(_np(want[1]), words_to_numpy(one))
+
+
 def test_carry_conversion_roundtrip():
     rng = np.random.default_rng(3)
     prev, seen = _words(rng, (1, 5)), _words(rng, (64, 5))
-    tp, ts = convert.carry_from_jax(prev, seen)
+    tp, ts = convert.carry_from_jax(prev, seen, device="cpu")
     assert tp.dtype == ts.dtype == torch.int32
     bp, bs = convert.carry_to_jax(tp, ts)
     assert bp.dtype == np.uint32
     assert np.array_equal(bp, prev) and np.array_equal(bs, seen)
     with pytest.raises(ValueError):
-        convert.carry_from_jax(seen, prev)
+        convert.carry_from_jax(seen, prev, device="cpu")
+
+
+def test_stream_carry_conversion_roundtrip():
+    rng = np.random.default_rng(4)
+    prev, seen = _words(rng, ()), _words(rng, 64)
+    run = np.uint32(61)
+    tp, tr, ts = convert.encoder_carry_from_jax(prev, run, seen, device="cpu")
+    assert (tp.shape, tr.shape, ts.shape) == ((), (), (64,))
+    assert tp.dtype == tr.dtype == ts.dtype == torch.int32
+    for got, want in zip(convert.encoder_carry_to_jax(tp, tr, ts),
+                         (prev, run, seen)):
+        assert got.dtype == np.uint32 and np.array_equal(got, want)
+    with pytest.raises(ValueError, match="0..61"):
+        convert.encoder_carry_from_jax(prev, np.uint32(62), seen,
+                                       device="cpu")
+    with pytest.raises(ValueError, match="shape"):
+        convert.encoder_carry_from_jax(prev[None], run, seen, device="cpu")
+    wp, ws = convert.window_carry_from_jax(prev[None], seen, device="cpu")
+    assert (wp.shape, ws.shape) == ((1,), (64,))
+    bp, bs = convert.window_carry_to_jax(wp, ws)
+    assert np.array_equal(bp, prev[None]) and np.array_equal(bs, seen)
+    with pytest.raises(ValueError, match="shape"):
+        convert.window_carry_from_jax(prev, seen, device="cpu")
+
+
+def test_conversion_defaults_to_cuda():
+    # decided when the test runs, on whichever machine runs it
+    rng = np.random.default_rng(5)
+    prev, seen = _words(rng, (1, 2)), _words(rng, (64, 2))
+    if torch.cuda.is_available():
+        assert convert.words_to_torch(prev).device.type == "cuda"
+        assert convert.carry_from_jax(prev, seen)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.words_to_torch(prev)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.encoder_carry_from_jax(prev[0, 0], np.uint32(0),
+                                           seen[:, 0])
 
 
 def test_port_imports_without_jax():
@@ -198,4 +265,6 @@ def test_profile_grouping_and_busy_union():
     assert profile.group_of("Memcpy HtoD (Pageable -> Device)") == "copies"
     assert profile.group_of("void at::native::vectorized_elementwise_kernel"
                             "<4, ...>") == "torch elementwise"
+    assert profile.group_of("void (anonymous namespace)::fields_kernel("
+                            "unsigned int const*)") == "E1 fields"
     assert profile.group_of("some_other_kernel") == "other"

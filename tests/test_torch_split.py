@@ -14,10 +14,14 @@ from qoipp_tpu import Channels, Desc, oracle
 from qoipp_tpu.common import write_header
 from qoipp_tpu.models import split as jsplit
 from qoipp_tpu.ops.bitops import START_PIXEL_PACKED
-from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch import convert
+from qoipp_tpu_torch.convert import words_to_numpy
 from qoipp_tpu_torch.models import split
 
 torch.set_num_threads(1)
+
+def words_to_torch(words):
+    return convert.words_to_torch(words, device="cpu")
 
 
 def _mixed_image(rng, w, h, ch):
@@ -171,10 +175,11 @@ def _jax_propagate(heads, out_p, out_s, pu, sw):
         return ((jnp.where(pu_k > 0, op, in_p), jnp.where(sw_k > 0, os_, in_s)),
                 (in_p, in_s))
 
-    _, (in_p, in_s) = jax.lax.scan(
+    (fin_p, fin_s), (in_p, in_s) = jax.lax.scan(
         step, (jnp.uint32(START_PIXEL_PACKED), seen0),
         (heads, out_p, out_s, pu, sw))
-    return np.asarray(in_p), np.asarray(in_s)
+    return (np.asarray(in_p), np.asarray(in_s),
+            np.concatenate([np.asarray(fin_p)[None], np.asarray(fin_s)]))
 
 
 @pytest.mark.parametrize("seed,lanes,p_bit", [(0, 1, 0.5), (1, 24, 0.05),
@@ -187,15 +192,16 @@ def test_propagate_matches_jax_scan(seed, lanes, p_bit):
                          dtype=np.uint64).astype(np.uint32)
     pu = (rng.random(lanes) < p_bit).astype(np.int32)
     sw = (rng.random((lanes, 64)) < p_bit).astype(np.int32)
-    want_p, want_s = _jax_propagate(jnp.asarray(heads), jnp.asarray(out_p),
-                                    jnp.asarray(out_s), jnp.asarray(pu),
-                                    jnp.asarray(sw))
-    got_p, got_s = split.propagate(
+    want_p, want_s, want_fin = _jax_propagate(
+        jnp.asarray(heads), jnp.asarray(out_p), jnp.asarray(out_s),
+        jnp.asarray(pu), jnp.asarray(sw))
+    got_p, got_s, got_fin = split.propagate(
         torch.from_numpy(heads), words_to_torch(out_p[None]),
         words_to_torch(out_s.T), torch.from_numpy(pu[None].copy()),
         torch.from_numpy(sw.T.copy()))
     assert np.array_equal(words_to_numpy(got_p)[0], want_p)
     assert np.array_equal(words_to_numpy(got_s).T, want_s)
+    assert np.array_equal(words_to_numpy(got_fin), want_fin)
 
 
 def test_compact_chunks_matches_jax():
