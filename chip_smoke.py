@@ -4,8 +4,9 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the seven CUDA kernels from qoipp_tpu_torch/csrc and the native
-   oracle from native/qoi_ref.cpp;
+1. builds the eleven CUDA kernels from qoipp_tpu_torch/csrc (eight sources,
+   one nvcc each, started together) and the native oracle from
+   native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
    bit-exact (tolerance 0);
 3. drives four paths, each against the oracle, bit-exact:
@@ -27,11 +28,17 @@
      1920x1088 image decoded at 1 MB and encoded at 2^18 pixels on 1 and
      8 lanes.  Decoded pixels must equal the oracle's, encoded streams
      (header, windows, finalize) its bytes;
+   - the windowed placement experiments E2, E3, E5 and E6
+     (qoipp_tpu_torch/benchmarks: expt_place_wide, expt_place2,
+     expt_place_narrow, expt_place_fixed), each main at its own sizes:
+     every variant against the plain windowed placement on the whole
+     output and, where exact, against K2 up to each image's last chunk
+     start, bit-exact, then timed beside K2;
 4. requires each kernel of each path to have launched in that path's run
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
-   shapes and times both, then times every path (1 cold, 3 warmup, 5
-   timed runs, CUDA events).
+   shapes and times both (E2-E6 beside K2 on the same inputs), then times
+   every path (1 cold, 3 warmup, 5 timed runs, CUDA events).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -41,7 +48,7 @@ It imports neither JAX nor the JAX package.
 
 import sys
 
-for _name in ("jax", "qoipp_tpu", "bench"):
+for _name in ("jax", "qoipp_tpu", "bench", "benchmarks"):
     sys.modules[_name] = None  # the port runs where these are absent
 
 import json  # noqa: E402
@@ -52,6 +59,13 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from qoipp_tpu_torch import kernels, oracle  # noqa: E402
+from qoipp_tpu_torch.benchmarks import (  # noqa: E402
+    expt_place2,
+    expt_place_fixed,
+    expt_place_narrow,
+    expt_place_wide,
+    timed_ms,
+)
 from qoipp_tpu_torch.common import Channels, Desc  # noqa: E402
 from qoipp_tpu_torch.kernels import selfcheck  # noqa: E402
 from qoipp_tpu_torch.models import split  # noqa: E402
@@ -65,6 +79,7 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     encode as enc_ops,
     fields_kernel,
     place_kernel,
+    place_window,
     replay_kernel,
 )
 from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
@@ -92,6 +107,14 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                 "qoipp_tpu/ops/replay_kernel.py:302"),
     "fields": ("qoipp_tpu_torch/csrc/fields.cu",
                "benchmarks/fields_kernel.py:253"),
+    "place_wide": ("qoipp_tpu_torch/csrc/place_window.cu",
+                   "benchmarks/expt_place_wide.py:206"),
+    "place_fill2": ("qoipp_tpu_torch/csrc/place_window.cu",
+                    "benchmarks/expt_place2.py:181"),
+    "place_fill_narrow": ("qoipp_tpu_torch/csrc/place_window.cu",
+                          "benchmarks/expt_place_narrow.py:192"),
+    "place_variant": ("qoipp_tpu_torch/csrc/place_window.cu",
+                      "benchmarks/expt_place_fixed.py:174"),
 }
 # 32-bit operations per element of each kernel's work (per row and lane for
 # the replays: class decode, selects, per-byte add, hash, table write; per
@@ -100,6 +123,34 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
 # packing); place_fill and logfill count theirs from the data
 OPS_PER_ELEMENT = {"replay": 24, "replay_summary": 28, "compact": 3,
                    "emit": 4, "fields": 60}
+# the windowed placement: per candidate row the writer and window tests,
+# per pixel six fill passes of a test and a select and the carry select
+WINDOW_OPS_PER_ROW, WINDOW_OPS_PER_PIXEL = 4, 14
+# E2, E3, E5, E6: kernel -> (experiment module, a function making the main
+# input its phase 5 row times, (case, pb, emits, n_cap) as numpy, the
+# rows per base_step unit, and the wrapper's call with its defaults)
+EXPERIMENTS = {
+    "place_wide": (
+        expt_place_wide,
+        lambda: ("photo b=8", *expt_place_wide.gen_inputs(
+            np.random.default_rng(0), 8, 1 << 19)),
+        256, place_window.place_wide),
+    "place_fill2": (
+        expt_place2,
+        lambda: ("bench-like B=128", *expt_place2.make_case(
+            128, 284928, 0.40, 0.20)),
+        place_window.SLAB, place_window.place_fill2),
+    "place_fill_narrow": (
+        expt_place_narrow,
+        lambda: ("photo b=8", *expt_place_narrow.gen_case(
+            np.random.default_rng(0), 8, 1 << 19, 0.002)),
+        place_window.SLAB, place_window.place_fill_narrow),
+    "place_variant": (
+        expt_place_fixed,
+        lambda: ("photo b=8", *expt_place_fixed.gen_inputs(
+            np.random.default_rng(0), 8, 1 << 19)),
+        place_window.SLAB, place_window.place_variant),
+}
 STREAM_DECODE = ((1 << 20, "sparse"), (4 << 20, "sparse"),
                  (1 << 20, "rgba"))  # window_cap, image
 STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
@@ -109,20 +160,6 @@ FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
 
 def log(*a):
     print(*a, flush=True)
-
-
-def timed_ms(fn, warmup=3, runs=5):
-    """Mean ms of fn over `runs` after `warmup`, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / runs
 
 
 def expect(cond, what):
@@ -367,6 +404,14 @@ def phase3_oneshot_encode(run):
     log(f"phase 3: encode_single[{run['label']}] equals the oracle")
 
 
+def phase3_experiment(name, results, dev):
+    """One experiment's main at its own sizes: every variant held against
+    the plain windowed placement (and K2) and timed beside K2."""
+    module = EXPERIMENTS[name][0]
+    log(f"phase 3: {module.__name__}.main()")
+    results[name] = module.main([], device=dev)
+
+
 def drive(label, fn, needs, totals):
     """Run one path with every launch count at 0, then require each kernel
     of `needs` (or of what `needs()` returns after the run) to have
@@ -584,6 +629,41 @@ def _time_path(what, fn, mpix, card):
         f"(cold {cold:.2f} ms) on {card}")
 
 
+def phase5_window(name, results, launches, dev, card):
+    """A windowed placement kernel (its wrapper's defaults) against its
+    plain version on its experiment's main input, timed beside K2 and the
+    plain version, base rows computed outside the timed call; bound: 8
+    bytes read per row, 4 written per pixel."""
+    _, make, lanes, wrapper = EXPERIMENTS[name]
+    case, pb_np, em_np, n_cap = make()
+    pb = torch.from_numpy(pb_np).to(dev)
+    em = torch.from_numpy(em_np.view(np.int32)).to(dev)
+    del pb_np, em_np
+    base = place_window.window_base_rows_w(pb, n_cap, lanes)
+    call = lambda: wrapper(pb, em, base, n_cap)
+    err = selfcheck.max_abs_err(
+        call(), place_window.windowed_place_reference(pb, em, n_cap))
+    expect(err == 0, f"{name} disagrees with its plain version")
+    plain = lambda: place_window.windowed_place_reference(pb, em, n_cap)
+    k2 = lambda: place_kernel.place_fill(pb, em, n_cap)
+    plain_ms = timed_ms(plain, warmup=1, runs=3)
+    ms = timed_ms(call)
+    k2_ms = timed_ms(k2)
+    b, q = pb.shape
+    variants = [{k: v for k, v in r.items()
+                 if k not in ("max_abs_err", "k2_err")}
+                for r in results[name]]
+    err = max([err] + [r["max_abs_err"] for r in results[name]])
+    log(f"phase 5: {name} ({case}: {b} x {q} rows -> {n_cap} px): "
+        f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    return _kernel_row(
+        name, launches[name], err, ms, plain_ms,
+        8 * b * q + 4 * b * n_cap,
+        b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap),
+        case=case, rows=q, images=b, n_cap=n_cap, k2_ms=k2_ms,
+        variants=variants)
+
+
 def phase5_pipeline_times(run, card):
     pipe, b = run["pipe"], len(run["blobs"])
     mpix = b * pipe.n_px / 1e6
@@ -651,11 +731,17 @@ def main():
         drive(f"the streaming path ({st['label']})",
               lambda st=st: phase3_stream(st, dev),
               lambda st=st: _stream_needs(st), launches)
+    results = {}
+    for name in EXPERIMENTS:
+        drive(f"the {name} experiment", lambda name=name: phase3_experiment(
+            name, results, dev), (name,), launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches)
     rows.append(phase5_split_kernels(sparse, launches))
     rows.append(phase5_logfill(oneshot[0], launches, dev))
     rows.append(phase5_fields(sparse, launches, dev))
+    for name in EXPERIMENTS:
+        rows.append(phase5_window(name, results, launches, dev, card))
     for run in runs:
         phase5_pipeline_times(run, card)
     for run in split_runs:

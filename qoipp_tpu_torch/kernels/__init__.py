@@ -1,6 +1,6 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
-The port's seven kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
+The port's eleven kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
 sm_90a behind a plain C interface.  On first use they are built with
 ``nvcc`` (one compiler process per source, all at once, then one link)
 into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the root of the
@@ -29,13 +29,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
-           "logfill.cu", "fields.cu")
+           "logfill.cu", "fields.cu", "place_window.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # kernel name -> launches since the last reset_launch_counts()
 LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
-            "replay_summary": 0, "logfill": 0, "fields": 0}
+            "replay_summary": 0, "logfill": 0, "fields": 0,
+            "place_wide": 0, "place_fill2": 0, "place_fill_narrow": 0,
+            "place_variant": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -54,6 +56,12 @@ _SIGNATURES = {
     # packed, n_px, prev_in, run_in, seen_in, tlo, thn, run_out, seen_out,
     # B, Nb, channels, stream
     "qk_fields": [_P] * 9 + [_I, _L, _I, _P],
+    # pb, emits, base, out, status, B, Q, n_cap, (lanes | ns), stream
+    "qk_place_wide": [_P] * 5 + [_I, _L, _L, _I, _P],
+    "qk_place_narrow": [_P] * 5 + [_I, _L, _L, _I, _P],
+    "qk_place_fill2": [_P] * 5 + [_I, _L, _L, _P],
+    # ..., n_cap, do_dma, do_slabs, n_fill, stream
+    "qk_place_variant": [_P] * 5 + [_I, _L, _L, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

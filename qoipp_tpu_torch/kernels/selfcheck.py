@@ -24,7 +24,14 @@ bit-exact.  The cases:
               the carried table only and on pixels three tiles back,
               carried runs of 61 and 30 entering at position 0, n_px
               ending mid-tile and n_px = 1, alpha flips, a one-colour row,
-              a ragged last tile, every row with its own n_px and carry.
+              a ragged last tile, every row with its own n_px and carry;
+  place_wide, place_fill2, place_fill_narrow, place_variant (E2, E3, E5,
+              E6; the whole output): B = 4 and B = 1, Q not a multiple of
+              the rows staged per step (nor of 128 for E2 and E5), runs of
+              equal pb, rows with pb >= n_cap, a 62-pixel run crossing a
+              window edge, an empty tail of three windows, a first pb > 0;
+              E2 at every lanes, E5 at ns 1, 2, 4 and 64, E6 at every
+              do_dma / do_slabs / n_fill it takes.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import numpy as np
 import torch
 
 from ..ops import (compact_kernel, emit_kernel, fields_kernel, place_kernel,
-                   replay_kernel)
+                   place_window, replay_kernel)
 from ..ops.bitops import hash6
 
 
@@ -253,9 +260,82 @@ def _fields(device) -> int:
     return err
 
 
+def _window_cases(rng, q, device):
+    """(pb, emits, n_cap) tensors of the windowed placement's edge cases:
+    B = 4 at n_cap = 4 WIN (image 0 runs past n_cap, image 1 leaves a tail
+    of three empty windows, image 2 has a 62-pixel run over the first
+    window edge, image 3 starts at pixel 100 with long runs of equal pb),
+    and B = 1 at n_cap = 2 WIN."""
+    win = place_window.WIN
+    produced = np.zeros((4, q), np.int64)
+    start = rng.random((4, q))
+    produced[0] = np.where(start[0] < 0.6, rng.integers(1, 40, q), 0)
+    produced[1] = np.where(start[1] < 0.4, 1, 0)
+    produced[2] = np.where(start[2] < 0.5, rng.integers(1, 4, q), 0)
+    produced[2, :133] = [62] * 131 + [40, 62]  # pb[132] = WIN - 30
+    produced[3] = np.where(start[3] < 0.2, rng.integers(1, 63, q), 0)
+    pb = np.cumsum(produced, axis=1) - produced
+    pb[3] += 100
+    assert pb[0, -1] >= 4 * win and pb[1, -1] < win
+    assert pb[2, 132] == win - 30 and pb[2, 133] == win + 32
+    one = np.where(rng.random((1, q)) < 0.57, rng.integers(1, 8, (1, q)), 0)
+    one = np.cumsum(one, axis=1) - one
+    return [(_t(p.astype(np.int32), device), _t(_words(rng, p.shape), device),
+             n_cap) for p, n_cap in ((pb, 4 * win), (one, 2 * win))]
+
+
+def _windowed(rng, q, device, call, n_fill=6, place=True):
+    """Max |wrapper - plain| over the windowed cases; call(pb, emits, n_cap)
+    runs the wrapper."""
+    return max(max_abs_err(call(pb, em, n_cap),
+                           place_window.windowed_place_reference(
+                               pb, em, n_cap, n_fill, place))
+               for pb, em, n_cap in _window_cases(rng, q, device))
+
+
+def _place_wide(device) -> int:
+    pw = place_window
+    return max(_windowed(np.random.default_rng(8), 4000, device,
+                         lambda pb, em, n, lanes=lanes: pw.place_wide(
+                             pb, em, pw.window_base_rows_w(pb, n, lanes), n,
+                             lanes=lanes))
+               for lanes in pw.WIDE_LANES)
+
+
+def _place_fill2(device) -> int:
+    pw = place_window
+    return _windowed(np.random.default_rng(9), 4224, device,
+                     lambda pb, em, n: pw.place_fill2(
+                         pb, em, pw.window_base_rows(pb, n), n))
+
+
+def _place_fill_narrow(device) -> int:
+    pw = place_window
+    return max(_windowed(np.random.default_rng(10), 4000, device,
+                         lambda pb, em, n, ns=ns: pw.place_fill_narrow(
+                             pb, em, pw.window_base_rows(pb, n), n, ns=ns))
+               for ns in (1, 2, 4, pw.SW))
+
+
+def _place_variant(device) -> int:
+    pw = place_window
+    err = 0
+    for dma, slabs in ((True, True), (True, False), (False, False)):
+        for n_fill in range(7):
+            err = max(err, _windowed(
+                np.random.default_rng(11), 4224, device,
+                lambda pb, em, n: pw.place_variant(
+                    pb, em, pw.window_base_rows(pb, n), n, do_dma=dma,
+                    do_slabs=slabs, n_fill=n_fill),
+                n_fill, slabs))
+    return err
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
          "emit": _emit, "replay_summary": _replay_summary,
-         "logfill": _logfill, "fields": _fields}
+         "logfill": _logfill, "fields": _fields, "place_wide": _place_wide,
+         "place_fill2": _place_fill2, "place_fill_narrow": _place_fill_narrow,
+         "place_variant": _place_variant}
 
 
 def check(name: str, device) -> int:

@@ -1,0 +1,193 @@
+"""E2, E3, E5, E6: the windowed placement experiments (csrc/place_window.cu).
+
+Four TPU layout experiments of the JAX package's K2 (``benchmarks/``
+``expt_place_wide``, ``expt_place2``, ``expt_place_narrow``,
+``expt_place_fixed``) compute one function, the **windowed placement**:
+per image, row r writes iff pb[r+1] > pb[r] (pb[Q] := n_cap) and
+pb[r] < n_cap, and puts emits[r] at pixel pb[r].  Pixels are cut into
+windows of WIN.  Inside a window a pixel takes the word of the nearest
+writer at or to its left in the same window, at most 2**n_fill - 1 away;
+any other pixel takes the carry, the previous window's last output (0 in
+the first window).  With place=False (E6's ``do_slabs=False``) nothing
+writes and every pixel reads 0.  With n_fill=6 this is the JAX K2's
+whole output; it equals the port's K2 (ops/place_kernel.py) up to each
+image's last chunk start, and may differ past it, where K2 repeats the
+last row.
+
+Each wrapper keeps its experiment's signature and asserts.  CPU tensors
+take the plain version; CUDA tensors launch the experiment's kernel,
+which visits the candidate rows that ``base_step`` (window_base_rows, or
+window_base_rows_w for E2) names, and raises on any failure.  Words are
+int32 tensors holding the uint32 bits.  Knobs that only shaped the TPU
+kernel (E2's ``hoist``, E6's ``prec``) are accepted and launch the same
+kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+WIN = 8192  # pixels per placement window
+SW = WIN // 128  # 128-pixel stripes per window
+SLAB = 128  # candidate rows per base_step unit
+WIDE_LANES = (128, 256, 512)  # E2's candidate widths
+PRECS = ("highest", "bytes4")  # E6's MXU precisions on the TPU
+
+
+def window_base_rows_w(pb, n_cap: int, lanes: int):
+    """(B, n_cap // WIN + 1) int32: the number of ``lanes``-row slabs whose
+    last pb is below w * WIN, for every window edge w (Q padded to
+    ``lanes`` with pb = n_cap): window w's candidate rows are slabs
+    base[w] to base[w + 1], both included."""
+    nwin = n_cap // WIN
+    pad_q = (-pb.shape[1]) % lanes
+    if pad_q:
+        pb = torch.nn.functional.pad(pb, (0, pad_q), value=n_cap)
+    lastpb = pb[:, lanes - 1 :: lanes]
+    bounds = torch.arange(nwin + 1, dtype=pb.dtype, device=pb.device) * WIN
+    return (lastpb[:, :, None] < bounds).sum(dim=1, dtype=torch.int32)
+
+
+def window_base_rows(pb, n_cap: int):
+    """window_base_rows_w in SLAB-row units (the JAX K2's base_step)."""
+    return window_base_rows_w(pb, n_cap, SLAB)
+
+
+def _require(ok: bool, what: str) -> None:
+    """The experiments' asserts, as checks that stay under -O."""
+    if not ok:
+        raise ValueError(what)
+
+
+def writers(pb, n_cap: int):
+    """(nxt, writes), both (B, Q): each row's next pb (n_cap after the
+    last row) and whether the row writes (nxt > pb, 0 <= pb < n_cap)."""
+    nxt = torch.cat([pb[:, 1:], torch.full_like(pb[:, :1], n_cap)], dim=1)
+    return nxt, (nxt > pb) & (pb >= 0) & (pb < n_cap)
+
+
+def windowed_place_reference(pb, emits, n_cap: int, n_fill: int = 6,
+                             place: bool = True):
+    """Plain version of E2, E3, E5 and E6: the windowed placement of the
+    module docstring.  pb, emits (B, Q) int32 -> (B, n_cap) int32."""
+    _require(n_cap % WIN == 0, f"n_cap {n_cap} is not a multiple of {WIN}")
+    b, q = pb.shape
+    dev = pb.device
+    nwin = n_cap // WIN
+    pos = torch.full((b, n_cap), -1, dtype=torch.int32, device=dev)
+    val = torch.zeros((b, n_cap), dtype=torch.int32, device=dev)
+    if place and q:
+        bi, ri = torch.nonzero(writers(pb, n_cap)[1], as_tuple=True)
+        at = pb[bi, ri].long()
+        pos[bi, at] = at.to(torch.int32)
+        val[bi, at] = emits[bi, ri]
+    # the nearest writer at or left of each pixel, inside its window
+    near = torch.cummax(pos.view(b, nwin, WIN), dim=2).values.view(b, n_cap)
+    px = torch.arange(n_cap, dtype=torch.int32, device=dev)
+    owned = (near >= 0) & (px - near < (1 << n_fill))
+    local = torch.gather(val, 1, near.clamp(min=0).long())
+    # the carry into window w: the last output of the nearest earlier
+    # window whose last pixel is its own, else 0
+    last_owned = owned[:, WIN - 1 :: WIN]
+    last_val = local[:, WIN - 1 :: WIN]
+    w = torch.arange(nwin, dtype=torch.int32, device=dev)
+    owner = torch.cummax(torch.where(last_owned, w, -1), dim=1).values
+    src = torch.cat([torch.full((b, 1), -1, dtype=torch.int32, device=dev),
+                     owner[:, :-1]], dim=1)
+    carry = torch.where(src >= 0, torch.gather(last_val, 1,
+                                               src.clamp(min=0).long()), 0)
+    return torch.where(owned, local, carry.repeat_interleave(WIN, dim=1))
+
+
+def _launch(name, entry, pb, emits, base_step, n_cap, units_per_image,
+            *extra):
+    """Check the inputs of a CUDA call, allocate the output and the
+    look-back status (one word per unit of windows, then the ticket
+    counter), and launch ``entry`` with ``extra`` int arguments."""
+    b, q = pb.shape
+    dev = pb.device
+    _require(n_cap % WIN == 0, f"n_cap {n_cap} is not a multiple of {WIN}")
+    kernels.check(pb, "pb", torch.int32, (b, q), dev)
+    kernels.check(emits, "emits", torch.int32, (b, q), dev)
+    kernels.check(base_step, "base_step", torch.int32,
+                  (b, n_cap // WIN + 1), dev)
+    if n_cap >= 1 << 31:
+        raise ValueError(f"n_cap {n_cap} does not fit int32 offsets")
+    out = torch.empty((b, n_cap), dtype=torch.int32, device=dev)
+    status = torch.zeros(b * units_per_image + 1, dtype=torch.int64,
+                         device=dev)
+    if b and n_cap:
+        kernels.launch(name, entry, dev, pb.data_ptr(), emits.data_ptr(),
+                       base_step.data_ptr(), out.data_ptr(),
+                       status.data_ptr(), b, q, n_cap, *extra)
+    return out
+
+
+def place_wide(pb, emits, base_step, n_cap: int, lanes: int = 256,
+               hoist: bool = True):
+    """E2: windowed placement over ``lanes``-wide candidate slabs.
+
+    pb (B, Q) int32 nondecreasing; emits (B, Q) int32; base_step from
+    window_base_rows_w(pb, n_cap, lanes); n_cap % WIN == 0.  Rows past Q
+    read as pb = n_cap, the JAX wrapper's padding.  The kernel stages
+    ``lanes`` candidate rows per step; ``hoist`` shaped the TPU kernel's
+    vector code only.  Returns (B, n_cap) int32."""
+    b, _ = pb.shape
+    _require(tuple(base_step.shape) == (b, n_cap // WIN + 1),
+             f"base_step shape {tuple(base_step.shape)}")
+    _require(lanes in WIDE_LANES,
+             f"lanes must be one of {WIDE_LANES}, got {lanes}")
+    if pb.device.type == "cpu":
+        return windowed_place_reference(pb, emits, n_cap)
+    return _launch("place_wide", "qk_place_wide", pb, emits, base_step,
+                   n_cap, n_cap // WIN, lanes)
+
+
+def place_fill2(pb, emits, base_step, n_cap: int):
+    """E3: windowed placement, two windows per block from one staged row
+    range; the fill passes of reach beyond 7 run only in a window whose
+    longest chunk exceeds 8 pixels.  Q % 128 == 0, n_cap % (2 WIN) == 0,
+    base_step from window_base_rows.  Returns (B, n_cap) int32."""
+    b, q = pb.shape
+    _require(q % 128 == 0 and n_cap % (2 * WIN) == 0,
+             f"Q {q} is not a multiple of 128 or n_cap {n_cap} of {2 * WIN}")
+    _require(tuple(base_step.shape) == (b, n_cap // WIN + 1),
+             f"base_step shape {tuple(base_step.shape)}")
+    if pb.device.type == "cpu":
+        return windowed_place_reference(pb, emits, n_cap)
+    return _launch("place_fill2", "qk_place_fill2", pb, emits, base_step,
+                   n_cap, n_cap // (2 * WIN))
+
+
+def place_fill_narrow(pb, emits, base_step, n_cap: int, ns: int = 4):
+    """E5: windowed placement where each 128-row group whose writers span
+    at most ``ns`` stripes of 128 pixels is written output-driven (threads
+    over the span search the group), and wider groups row-driven.
+    base_step from window_base_rows.  Returns (B, n_cap) int32."""
+    _require(1 <= ns <= SW, f"ns must be in 1..{SW}, got {ns}")
+    if pb.device.type == "cpu":
+        return windowed_place_reference(pb, emits, n_cap)
+    return _launch("place_fill_narrow", "qk_place_narrow", pb, emits,
+                   base_step, n_cap, n_cap // WIN, ns)
+
+
+def place_variant(pb, emits, base_step, n_cap: int, do_dma: bool = True,
+                  do_slabs: bool = True, n_fill: int = 6,
+                  prec: str = "highest"):
+    """E6: the production placement with stages knocked out.  do_dma=False
+    reads no candidate rows, do_slabs=False writes none (every pixel 0),
+    n_fill (0-6) cuts the fill's reach to 2**n_fill - 1; ``prec`` chose the
+    TPU's MXU precision only.  Q % 128 == 0, base_step from
+    window_base_rows.  Returns (B, n_cap) int32."""
+    _require(pb.shape[1] % SLAB == 0,
+             f"Q {pb.shape[1]} is not a multiple of {SLAB}")
+    _require(0 <= n_fill <= 6, f"n_fill must be in 0..6, got {n_fill}")
+    _require(prec in PRECS, f"prec must be one of {PRECS}, got {prec!r}")
+    _require(do_dma or not do_slabs,
+             "do_slabs without do_dma places rows that were never read")
+    if pb.device.type == "cpu":
+        return windowed_place_reference(pb, emits, n_cap, n_fill, do_slabs)
+    return _launch("place_variant", "qk_place_variant", pb, emits, base_step,
+                   n_cap, n_cap // WIN, int(do_dma), int(do_slabs), n_fill)

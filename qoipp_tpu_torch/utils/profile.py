@@ -12,7 +12,11 @@ the 4096x4096 sparse and the 1920x1088 dense stream, the one-shot
 codec on one RGB and one RGBA 1920x1088 image, and the streaming codec on
 the 4096x4096 image (decode in 1 MB and 4 MB windows, encode in 2^18-pixel
 windows at one lane and in 2^20-pixel windows at 16 lanes) and on the RGBA
-image (encode in 2^18-pixel windows at 1 and 8 lanes).
+image (encode in 2^18-pixel windows at 1 and 8 lanes), and the windowed
+placement kernels on their experiments' main inputs (E2 at each lanes, E5
+at ns 2 and 4, E6 full, no-dma and bare, and K2 on the same 8 x 524,288
+photo-like rows; E3 and K2 on the 128 x 284,928 bench-like rows), base
+rows computed outside the call.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 # (group, lower-case substring of the kernel name), first match wins
 GROUPS = (
     ("K1/K5 replay", "replay_kernel"),
-    ("K2 place_fill", "place_fill"),
+    ("K2 place_fill", "place_fill_kernel"),
+    ("E2/E3/E5/E6 windowed placement", "place_"),
     ("K3 compact", "compact_kernel"),
     ("K4 emit", "emit_kernel"),
     ("K6 logfill", "logfill"),
@@ -146,7 +151,47 @@ def _paths(dev):
         paths.append((f"stream encode {label} {1 << 18} px L={lanes}",
                       lambda n=lanes, r=raw, d=d: stream_encode(
                           r, d, 1 << 18, n, device=dev)))
-    return paths
+    return paths + _window_paths(dev)
+
+
+def _window_paths(dev):
+    """(label, fn) of the windowed placement kernels and K2 on the
+    experiments' main inputs."""
+    from ..benchmarks import expt_place2, expt_place_fixed
+    from ..ops import place_kernel
+    from ..ops import place_window as PW
+
+    def on_card(pb, em, n_cap):
+        pb = torch.from_numpy(pb).to(dev)
+        return pb, torch.from_numpy(em.view(np.int32)).to(dev), n_cap
+
+    pb, em, n = on_card(*expt_place_fixed.gen_inputs(
+        np.random.default_rng(0), 8, 1 << 19))
+    base = PW.window_base_rows(pb, n)
+    photo = "photo 8x524288"
+    paths = [(f"K2 place_fill {photo}",
+              lambda: place_kernel.place_fill(pb, em, n))]
+    for lanes in PW.WIDE_LANES:
+        paths.append((f"E2 place_wide lanes={lanes} {photo}",
+                      lambda k=lanes, b=PW.window_base_rows_w(pb, n, lanes):
+                      PW.place_wide(pb, em, b, n, lanes=k)))
+    for ns in (2, 4):
+        paths.append((f"E5 place_fill_narrow ns={ns} {photo}",
+                      lambda k=ns: PW.place_fill_narrow(pb, em, base, n,
+                                                        ns=k)))
+    for what, kw in (("full", {}),
+                     ("no-dma", dict(do_dma=False, do_slabs=False)),
+                     ("bare", dict(do_dma=False, do_slabs=False, n_fill=0))):
+        paths.append((f"E6 place_variant {what} {photo}",
+                      lambda kw=kw: PW.place_variant(pb, em, base, n, **kw)))
+    pb3, em3, n3 = on_card(*expt_place2.make_case(128, 284928, 0.40, 0.20))
+    base3 = PW.window_base_rows(pb3, n3)
+    bench = "bench-like 128x284928"
+    return paths + [
+        (f"K2 place_fill {bench}",
+         lambda: place_kernel.place_fill(pb3, em3, n3)),
+        (f"E3 place_fill2 {bench}",
+         lambda: PW.place_fill2(pb3, em3, base3, n3))]
 
 
 def main():

@@ -2,8 +2,8 @@
 PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
 chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
 one-shot codec and the streaming codec at a small size against the port's
-oracle.  Without a
-CUDA device every test here skips.
+oracle, and the windowed placement experiments (E2, E3, E5, E6) at a small
+size.  Without a CUDA device every test here skips.
 
 Run on a GPU machine: python -m pytest tests/test_torch_cuda.py -q"""
 
@@ -113,6 +113,23 @@ def test_stream_on_card_matches_oracle(cuda, channels, lanes):
     after = kernels.launch_counts()
     for name in ("replay_summary", "place_fill"):
         assert after[name] > mid[name]
+
+
+@pytest.mark.parametrize("module,name,argv", [
+    ("expt_place_wide", "place_wide", ["-b", "2", "--rows", "40000"]),
+    ("expt_place2", "place_fill2", ["-b", "3", "--rows", "8192"]),
+    ("expt_place_narrow", "place_fill_narrow", ["-b", "2", "--rows", "40000"]),
+    ("expt_place_fixed", "place_variant", ["-b", "2", "--rows", "40960"]),
+])
+def test_place_window_experiment_on_card(cuda, module, name, argv):
+    import importlib
+
+    expt = importlib.import_module(f"qoipp_tpu_torch.benchmarks.{module}")
+    before = kernels.launch_counts()[name]
+    rows = expt.main(argv + ["--runs", "2"], device=cuda)
+    assert all(r["max_abs_err"] == 0 and r["ms"] > 0 for r in rows)
+    assert any(r["k2_err"] == 0 for r in rows)
+    assert kernels.launch_counts()[name] > before
 
 
 def test_wrapper_rejects_bad_input(cuda):

@@ -214,15 +214,18 @@ def test_conversion_defaults_to_cuda():
 def test_port_imports_without_jax():
     # the port and chip_smoke.py must run where neither JAX nor the JAX
     # package is installed: import every module of the port with jax,
-    # qoipp_tpu and bench blocked
+    # qoipp_tpu, bench and the JAX experiments' benchmarks blocked
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'qoipp_tpu', 'bench'):\n"
+        "for name in ('jax', 'qoipp_tpu', 'bench', 'benchmarks'):\n"
         "    sys.modules[name] = None\n"
         "import qoipp_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    qoipp_tpu_torch.__path__, 'qoipp_tpu_torch.')]\n"
-        "assert len(names) > 20, names\n"
+        "assert len(names) > 25, names\n"
+        "for e in ('expt_place_wide', 'expt_place2', 'expt_place_narrow',\n"
+        "          'expt_place_fixed'):\n"
+        "    assert 'qoipp_tpu_torch.benchmarks.' + e in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
@@ -242,7 +245,7 @@ def _port_sources():
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_source_imports_nothing_of_jax(path):
-    banned = ("jax", "qoipp_tpu", "bench")
+    banned = ("jax", "qoipp_tpu", "bench", "benchmarks")
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -267,4 +270,11 @@ def test_profile_grouping_and_busy_union():
                             "<4, ...>") == "torch elementwise"
     assert profile.group_of("void (anonymous namespace)::fields_kernel("
                             "unsigned int const*)") == "E1 fields"
+    assert profile.group_of("void (anonymous namespace)::place_fill_kernel("
+                            "int const*)") == "K2 place_fill"
+    assert profile.group_of("void (anonymous namespace)::place_fill2_kernel("
+                            "int const*)") == "E2/E3/E5/E6 windowed placement"
+    assert profile.group_of("void (anonymous namespace)::place_variant_kernel"
+                            "<true, false, 3>(int const*)") == (
+        "E2/E3/E5/E6 windowed placement")
     assert profile.group_of("some_other_kernel") == "other"

@@ -1,0 +1,244 @@
+"""E2, E3, E5 and E6, the windowed placement experiments of K2, against the
+JAX package's Pallas kernels (benchmarks/expt_place_wide.py,
+expt_place2.py, expt_place_narrow.py, expt_place_fixed.py, loaded by path
+and run in interpret mode) on the whole (B, n_cap) output, bit-exact.  On
+CPU tensors each wrapper takes the plain windowed placement
+(qoipp_tpu_torch.ops.place_window); the kernels themselves run on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  Also: the experiment scripts' input
+generators against the scripts', window_base_rows(_w) against the JAX
+one, and the experiment scripts' parity runs at a small size."""
+
+import importlib.util
+import inspect
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from qoipp_tpu.ops import place_kernel as jpk
+from qoipp_tpu_torch.benchmarks import (expt_place2, expt_place_fixed,
+                                        expt_place_narrow, expt_place_wide)
+from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.ops import place_window as PW
+
+torch.set_num_threads(1)
+
+_LOADED = {}
+
+
+def _script(name):
+    """A module of benchmarks/, loaded by path once per process."""
+    if name not in _LOADED:
+        path = (Path(__file__).resolve().parent.parent / "benchmarks"
+                / f"{name}.py")
+        spec = importlib.util.spec_from_file_location(f"benchmarks_{name}",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _LOADED[name] = mod
+    return _LOADED[name]
+
+
+def _port(pb, emits):
+    return (torch.from_numpy(np.array(pb, np.int32)),
+            words_to_torch(np.asarray(emits), device="cpu"))
+
+
+def _same(want, got):
+    want = np.asarray(want)
+    assert want.dtype == np.uint32 and want.shape == tuple(got.shape)
+    assert np.array_equal(want, words_to_numpy(got))
+
+
+@pytest.mark.parametrize("lanes", PW.WIDE_LANES)
+@pytest.mark.parametrize("hoist", [False, True])
+def test_place_wide_matches_jax(lanes, hoist):
+    # bench-like density (~7 pixels per row): five windows, Q = 5000 not
+    # a multiple of any lanes
+    e2 = _script("expt_place_wide")
+    pbj, emj, n_cap = e2.gen_inputs(np.random.default_rng(lanes + hoist), 2,
+                                    5000, density=0.40, run_p=0.20)
+    assert n_cap >= 4 * PW.WIN
+    want = e2.place_wide(pbj, emj, e2.window_base_rows_w(pbj, n_cap, lanes),
+                         n_cap, lanes=lanes, hoist=hoist)
+    pb, emits = _port(pbj, emj)
+    got = PW.place_wide(pb, emits, PW.window_base_rows_w(pb, n_cap, lanes),
+                        n_cap, lanes=lanes, hoist=hoist)
+    _same(want, got)
+
+
+@pytest.mark.parametrize("case", range(len(expt_place2.CASES)),
+                         ids=[c[0] for c in expt_place2.CASES])
+def test_place_fill2_matches_jax(case):
+    e3 = _script("expt_place2")
+    _, dens, rf = expt_place2.CASES[case]
+    pbj, emj, n_cap = e3.make_case(2, 4096, dens, rf, seed=case)
+    want = e3.place_fill2(pbj, emj, jpk.window_base_rows(pbj, n_cap), n_cap)
+    pb, emits = _port(pbj, emj)
+    got = PW.place_fill2(pb, emits, PW.window_base_rows(pb, n_cap), n_cap)
+    _same(want, got)
+
+
+@pytest.mark.parametrize("ns", expt_place_narrow.NS)
+@pytest.mark.parametrize("run_frac", [0.02, 0.20])
+def test_place_fill_narrow_matches_jax(ns, run_frac):
+    e5 = _script("expt_place_narrow")
+    pbj, emj, n_cap = e5.gen_case(np.random.default_rng(ns), 2, 8192,
+                                  run_frac)
+    assert n_cap >= 2 * PW.WIN
+    with pltpu.force_tpu_interpret_mode():
+        want = e5.place_fill_narrow(pbj, emj,
+                                    jpk.window_base_rows(pbj, n_cap),
+                                    n_cap=n_cap, ns=ns)
+    pb, emits = _port(pbj, emj)
+    got = PW.place_fill_narrow(pb, emits, PW.window_base_rows(pb, n_cap),
+                               n_cap, ns=ns)
+    _same(want, got)
+
+
+E6_CASES = {
+    "highest": dict(prec="highest"),
+    "bytes4": dict(prec="bytes4"),
+    "fill-3": dict(n_fill=3),
+    "no-fill": dict(n_fill=0),
+    "no-slabs": dict(do_slabs=False),
+    "no-dma": dict(do_dma=False, do_slabs=False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(E6_CASES))
+def test_place_variant_matches_jax(name):
+    # bench-like rows (runs of 5..62 pixels, four windows), so the cut
+    # fills leave most pixels to the carry
+    kw = E6_CASES[name]
+    e6 = _script("expt_place_fixed")
+    pbj, emj, n_cap = _script("expt_place2").make_case(2, 4096, 0.40, 0.20,
+                                                       seed=len(name))
+    assert n_cap >= 3 * PW.WIN
+    with pltpu.force_tpu_interpret_mode():
+        want = e6.place_variant(pbj, emj, jpk.window_base_rows(pbj, n_cap),
+                                n_cap, **kw)
+    pb, emits = _port(pbj, emj)
+    got = PW.place_variant(pb, emits, PW.window_base_rows(pb, n_cap), n_cap,
+                           **kw)
+    _same(want, got)
+    if not kw.get("do_slabs", True):
+        assert not got.any()
+
+
+def test_windowed_reference_is_the_jax_k2_whole_output():
+    # rows with pb >= n_cap, runs of 1..62, a tail of empty windows
+    rng = np.random.default_rng(3)
+    produced = np.where(rng.random((3, 3072)) < 0.6,
+                        rng.integers(1, 63, (3, 3072)), 0)
+    produced[2, 1000:] = 0  # image 2 stops early: a long empty tail
+    pb = (np.cumsum(produced, axis=1) - produced).astype(np.int32)
+    emits = rng.integers(0, 1 << 32, pb.shape, dtype=np.uint64).astype(
+        np.uint32)
+    n_cap = 6 * PW.WIN
+    assert pb[0, -1] >= n_cap and pb[2, -1] < 4 * PW.WIN
+    want = jpk.place_fill(jnp.asarray(pb), jnp.asarray(emits),
+                          jpk.window_base_rows(jnp.asarray(pb), n_cap), n_cap)
+    got = PW.windowed_place_reference(*_port(pb, emits), n_cap)
+    _same(want, got)
+
+
+@pytest.mark.parametrize("lanes", PW.WIDE_LANES)
+def test_window_base_rows_match_jax(lanes):
+    rng = np.random.default_rng(lanes)
+    q = 3 * lanes + 77
+    produced = rng.integers(0, 120, (3, q))
+    pb = (np.cumsum(produced, axis=1) - produced).astype(np.int32)
+    n_cap = 2 * PW.WIN
+    assert pb[:, -1].max() >= n_cap  # rows past n_cap, out of order with
+    # the padding
+    want = _script("expt_place_wide").window_base_rows_w(jnp.asarray(pb),
+                                                         n_cap, lanes)
+    got = PW.window_base_rows_w(torch.from_numpy(pb), n_cap, lanes)
+    assert got.dtype == torch.int32
+    assert np.array_equal(np.asarray(want), got.numpy())
+    if lanes == PW.SLAB:
+        assert np.array_equal(
+            np.asarray(jpk.window_base_rows(jnp.asarray(pb), n_cap)),
+            PW.window_base_rows(torch.from_numpy(pb), n_cap).numpy())
+
+
+def _inline_e6_inputs():
+    """The input lines of expt_place_fixed.main, run as they stand."""
+    lines = inspect.getsource(_script("expt_place_fixed").main).splitlines()
+    first = next(i for i, ln in enumerate(lines) if "default_rng" in ln)
+    last = next(i for i, ln in enumerate(lines) if ln.strip().startswith(
+        "emits ="))
+    scope = {"np": np, "WIN": PW.WIN}
+    exec(textwrap.dedent("\n".join(lines[first : last + 1])), scope)
+    return scope["pb"], scope["emits"], scope["n_cap"], scope["b"], scope["q"]
+
+
+@pytest.mark.parametrize("script", ["expt_place_wide", "expt_place2",
+                                    "expt_place_narrow", "expt_place_fixed"])
+def test_generators_are_the_scripts(script):
+    if script == "expt_place_wide":
+        args = (2, 3000)
+        want = _script(script).gen_inputs(np.random.default_rng(4), *args,
+                                          density=0.3, run_p=0.01)
+        got = expt_place_wide.gen_inputs(np.random.default_rng(4), *args,
+                                         density=0.3, run_p=0.01)
+        pairs = [(want, got)]
+    elif script == "expt_place2":
+        pairs = [(_script(script).make_case(3, 2048, d, rf, seed=7),
+                  expt_place2.make_case(3, 2048, d, rf, seed=7))
+                 for _, d, rf in expt_place2.CASES]
+    elif script == "expt_place_narrow":
+        # one generator drawn twice, as main draws its two cases
+        rj, rp = np.random.default_rng(0), np.random.default_rng(0)
+        pairs = [(_script(script).gen_case(rj, 2, 3000, rf),
+                  expt_place_narrow.gen_case(rp, 2, 3000, rf))
+                 for _, rf in expt_place_narrow.CASES]
+    else:
+        pb, emits, n_cap, b, q = _inline_e6_inputs()
+        pairs = [((pb, emits, n_cap), expt_place_fixed.gen_inputs(
+            np.random.default_rng(0), b, q))]
+    for (wpb, wem, wcap), (gpb, gem, gcap) in pairs:
+        assert gpb.dtype == np.int32 and gem.dtype == np.uint32
+        assert wcap == gcap
+        assert np.array_equal(np.asarray(wpb, np.int32), gpb)
+        assert np.array_equal(np.asarray(wem), gem)
+
+
+@pytest.mark.parametrize("expt,argv", [
+    (expt_place_wide, ["-b", "2", "--rows", "3000"]),
+    (expt_place2, ["-b", "2", "--rows", "2048"]),
+    (expt_place_narrow, ["-b", "2", "--rows", "3000"]),
+    (expt_place_fixed, ["-b", "2", "--rows", "2048"]),
+], ids=lambda x: getattr(x, "__name__", "").rsplit(".", 1)[-1] or None)
+def test_experiment_parity_on_cpu(expt, argv):
+    rows = expt.main(argv + ["--runs", "0"], device="cpu")
+    assert rows and all(r["max_abs_err"] == 0 for r in rows)
+    assert all(r["k2_err"] in (None, 0) and r["ms"] is None for r in rows)
+    assert any(r["k2_err"] == 0 for r in rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        expt.main(argv, device="cpu")
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    pb = torch.zeros((1, 256), dtype=torch.int32)
+    emits = torch.zeros_like(pb)
+    base = PW.window_base_rows(pb, PW.WIN)
+    with pytest.raises(ValueError, match="do_dma"):
+        PW.place_variant(pb, emits, base, PW.WIN, do_dma=False)
+    with pytest.raises(ValueError, match="n_fill"):
+        PW.place_variant(pb, emits, base, PW.WIN, n_fill=7)
+    with pytest.raises(ValueError, match="prec"):
+        PW.place_variant(pb, emits, base, PW.WIN, prec="default")
+    with pytest.raises(ValueError, match="lanes"):
+        PW.place_wide(pb, emits, base, PW.WIN, lanes=64)
+    with pytest.raises(ValueError, match="ns"):
+        PW.place_fill_narrow(pb, emits, base, PW.WIN, ns=0)
+    with pytest.raises(ValueError, match="n_cap"):
+        PW.place_fill2(pb, emits, base, PW.WIN)  # n_cap % (2 WIN) != 0
+    with pytest.raises(ValueError, match="multiple of 128"):
+        PW.place_variant(pb[:, :200], emits[:, :200], base, PW.WIN)
