@@ -4,11 +4,11 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the eleven CUDA kernels from qoipp_tpu_torch/csrc (eight sources,
+1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (ten sources,
    one nvcc each, started together) and the native oracle from
    native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
-   bit-exact (tolerance 0);
+   bit-exact (tolerance 0; E9's float32 bins within 1e-6);
 3. drives four paths, each against the oracle, bit-exact:
    - BatchPipeline at 1920x1088, 16 RGB and 8 RGBA synthetic images
      (utils.corpus.make_corpus): decode_packed must equal the oracle's
@@ -34,11 +34,22 @@
      every variant against the plain windowed placement on the whole
      output and, where exact, against K2 up to each image's last chunk
      start, bit-exact, then timed beside K2;
+   - E4's experiment (benchmarks/expt_place, B=128 x 286,720 rows, n_cap
+     2,088,960): its exact variant against the plain grouped summed
+     placement on the whole output and K2 up to each image's last chunk
+     start, both variants timed beside K2; E7's (benchmarks/
+     expt_emit_wide, 8 x 2^17 rows, four variants) against K4's plain
+     version and K4 on the whole output, timed beside K4; and the probes
+     of benchmarks/profile_r2 on the batch RGB corpus (the stage profile,
+     torch's scatter and cumsum rates, E8 at 4,096 / 16,384 / 65,536
+     steps, E9 at 2,048 blocks of 2,048 targets), E8 and E9 against their
+     plain versions;
 4. requires each kernel of each path to have launched in that path's run
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
-   shapes and times both (E2-E6 beside K2 on the same inputs), then times
-   every path (1 cold, 3 warmup, 5 timed runs, CUDA events).
+   shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
+   inputs; E8 and E9 from the probes' run, beside their torch calls), then
+   times every path (1 cold, 3 warmup, 5 timed runs, CUDA events).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -60,10 +71,13 @@ import torch  # noqa: E402
 
 from qoipp_tpu_torch import kernels, oracle  # noqa: E402
 from qoipp_tpu_torch.benchmarks import (  # noqa: E402
+    expt_emit_wide,
+    expt_place,
     expt_place2,
     expt_place_fixed,
     expt_place_narrow,
     expt_place_wide,
+    profile_r2,
     timed_ms,
 )
 from qoipp_tpu_torch.common import Channels, Desc  # noqa: E402
@@ -76,10 +90,12 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     decode as dec_ops,
     device_stream,
     emit_kernel,
+    emit_window,
     encode as enc_ops,
     fields_kernel,
     place_kernel,
     place_window,
+    probes,
     replay_kernel,
 )
 from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
@@ -115,6 +131,14 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                           "benchmarks/expt_place_narrow.py:192"),
     "place_variant": ("qoipp_tpu_torch/csrc/place_window.cu",
                       "benchmarks/expt_place_fixed.py:174"),
+    "place_grouped": ("qoipp_tpu_torch/csrc/place_window.cu",
+                      "benchmarks/expt_place.py:163"),
+    "emit_window": ("qoipp_tpu_torch/csrc/emit_window.cu",
+                    "benchmarks/expt_emit_wide.py:223"),
+    "grid_step": ("qoipp_tpu_torch/csrc/probes.cu",
+                  "benchmarks/profile_r2.py:161"),
+    "onehot_place": ("qoipp_tpu_torch/csrc/probes.cu",
+                     "benchmarks/profile_r2.py:191"),
 }
 # 32-bit operations per element of each kernel's work (per row and lane for
 # the replays: class decode, selects, per-byte add, hash, table write; per
@@ -156,6 +180,7 @@ STREAM_DECODE = ((1 << 20, "sparse"), (4 << 20, "sparse"),
 STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
                  (1 << 18, 1, "rgba"), (1 << 18, 8, "rgba"))  # px, lanes
 FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
+PROBE_RUNS = 5  # timed calls per profile_r2 probe
 
 
 def log(*a):
@@ -205,7 +230,8 @@ def phase2_edge_cases(dev):
     for name in KERNELS:
         err = selfcheck.check(name, dev)
         log(f"phase 2: {name} vs plain on edge cases: max_abs_err {err}")
-        expect(err == 0, f"{name} disagrees with its plain version")
+        expect(err <= selfcheck.TOLERANCE.get(name, 0),
+               f"{name} disagrees with its plain version")
 
 
 def _oracle_packed(desc, blobs, dev):
@@ -412,6 +438,31 @@ def phase3_experiment(name, results, dev):
     results[name] = module.main([], device=dev)
 
 
+def phase3_expt_place(results, dev):
+    """E4's main at its own sizes: the exact variant against the plain
+    grouped summed placement and K2, both variants timed beside K2."""
+    log("phase 3: qoipp_tpu_torch.benchmarks.expt_place.main()")
+    results["place_grouped"] = expt_place.main([], device=dev)
+
+
+def phase3_expt_emit_wide(results, dev):
+    """E7's main at its own sizes: every variant against K4's plain version
+    and K4, timed beside K4."""
+    log("phase 3: qoipp_tpu_torch.benchmarks.expt_emit_wide.main()")
+    results["emit_window"] = expt_emit_wide.main([], device=dev)
+
+
+def phase3_probes(run, results, dev):
+    """profile_r2's probes, the stage profile on the batch RGB corpus (the
+    smoke run's batch, not the script's 128), E8 and E9 at their own
+    sizes."""
+    log(f"phase 3: qoipp_tpu_torch.benchmarks.profile_r2.run_probes() on "
+        f"the {run['label']} corpus")
+    results["probes"] = profile_r2.run_probes(
+        run["pipe"], run["streams"], run["sizes"], run["streams"].device,
+        runs=PROBE_RUNS)
+
+
 def drive(label, fn, needs, totals):
     """Run one path with every launch count at 0, then require each kernel
     of `needs` (or of what `needs()` returns after the run) to have
@@ -429,13 +480,14 @@ def drive(label, fn, needs, totals):
         totals[name] = totals.get(name, 0) + n
 
 
-def _kernel_row(name, launches, err, ms, plain_ms, nbytes, ops, **extra):
+def _kernel_row(name, launches, err, ms, plain_ms, nbytes, ops,
+                library_ms=None, **extra):
     source, replaces = KERNELS[name]
     bound_s, bound_by = bound(nbytes, ops)
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_s * 1e3, bound_by=bound_by, library_ms=None,
-                **extra)
+                bound_ms=bound_s * 1e3, bound_by=bound_by,
+                library_ms=library_ms, **extra)
 
 
 def _replay_bytes(c, b, summary):
@@ -629,6 +681,18 @@ def _time_path(what, fn, mpix, card):
         f"(cold {cold:.2f} ms) on {card}")
 
 
+def _variants(rows):
+    """An experiment main's result rows without their parity fields."""
+    return [{k: v for k, v in r.items() if not k.endswith("err")}
+            for r in rows]
+
+
+def _worst(err, rows):
+    """err and every compared variant's max_abs_err, the largest."""
+    return max([err] + [r["max_abs_err"] for r in rows
+                        if r["max_abs_err"] is not None])
+
+
 def phase5_window(name, results, launches, dev, card):
     """A windowed placement kernel (its wrapper's defaults) against its
     plain version on its experiment's main input, timed beside K2 and the
@@ -650,18 +714,102 @@ def phase5_window(name, results, launches, dev, card):
     ms = timed_ms(call)
     k2_ms = timed_ms(k2)
     b, q = pb.shape
-    variants = [{k: v for k, v in r.items()
-                 if k not in ("max_abs_err", "k2_err")}
-                for r in results[name]]
-    err = max([err] + [r["max_abs_err"] for r in results[name]])
     log(f"phase 5: {name} ({case}: {b} x {q} rows -> {n_cap} px): "
         f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
     return _kernel_row(
-        name, launches[name], err, ms, plain_ms,
+        name, launches[name], _worst(err, results[name]), ms, plain_ms,
         8 * b * q + 4 * b * n_cap,
         b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap),
         case=case, rows=q, images=b, n_cap=n_cap, k2_ms=k2_ms,
-        variants=variants)
+        variants=_variants(results[name]))
+
+
+def phase5_place_grouped(results, launches, dev, card):
+    """E4 at its wrapper's defaults (8192-pixel windows, G=1, dyn) on its
+    script's main input against the plain version, timed beside K2 and the
+    plain version, base rows outside the timed call; bound: 8 bytes read
+    per row, 4 written per pixel."""
+    pb_np, em_np, _ = expt_place.gen_inputs(
+        np.random.default_rng(0), expt_place.B, expt_place.N_CAP,
+        expt_place.CAP)
+    pb = torch.from_numpy(pb_np).to(dev)
+    em = torch.from_numpy(em_np.view(np.int32)).to(dev)
+    del pb_np, em_np
+    n_cap = expt_place.N_CAP
+    base = place_window.step_base_rows(pb, n_cap, place_window.WIN)
+    call = lambda: place_window.place_grouped(pb, em, base, n_cap)
+    plain = lambda: place_window.summed_place_reference(pb, em, n_cap)
+    err = selfcheck.max_abs_err(call(), plain())
+    expect(err == 0, "place_grouped disagrees with its plain version")
+    plain_ms = timed_ms(plain, warmup=1, runs=3)
+    ms = timed_ms(call)
+    k2_ms = timed_ms(lambda: place_kernel.place_fill(pb, em, n_cap))
+    b, q = pb.shape
+    log(f"phase 5: place_grouped (main: {b} x {q} rows -> {n_cap} px): "
+        f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    rows = results["place_grouped"]
+    return _kernel_row(
+        "place_grouped", launches["place_grouped"], _worst(err, rows), ms,
+        plain_ms, 8 * b * q + 4 * b * n_cap,
+        b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap),
+        case=f"main B={b}", rows=q, images=b, n_cap=n_cap, k2_ms=k2_ms,
+        variants=_variants(rows))
+
+
+def phase5_emit_window(results, launches, dev, card):
+    """E7 at its wrapper's defaults (256 lanes) on its script's input
+    against the plain version, timed beside K4 and the plain version, base
+    rows outside the timed call; bound: 12 bytes read per row, 4 written
+    per output byte."""
+    off_np, tlo_np, thn_np, out_cap = expt_emit_wide.gen_inputs(
+        np.random.default_rng(0), 8, 1 << 17)
+    off = torch.from_numpy(off_np).to(dev)
+    tlo, thn = (torch.from_numpy(x.view(np.int32)).to(dev)
+                for x in (tlo_np, thn_np))
+    base = emit_window.window_base_rows_w(off, out_cap, 256)
+    call = lambda: emit_window.emit_wide(off, tlo, thn, base, out_cap)
+    plain = lambda: emit_window.emit_wide_reference(off, tlo, thn, out_cap)
+    err = selfcheck.max_abs_err(call(), plain())
+    expect(err == 0, "emit_window disagrees with its plain version")
+    plain_ms = timed_ms(plain)
+    ms = timed_ms(call)
+    k4_ms = timed_ms(lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap))
+    b, c = off.shape
+    log(f"phase 5: emit_window (8 x {c} rows -> {out_cap} bytes): "
+        f"{ms:.4f} ms, K4 {k4_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    rows = results["emit_window"]
+    return _kernel_row(
+        "emit_window", launches["emit_window"], _worst(err, rows), ms,
+        plain_ms, 12 * b * c + 4 * b * out_cap,
+        OPS_PER_ELEMENT["emit"] * b * out_cap, rows=c, images=b,
+        out_cap=out_cap, k4_ms=k4_ms, variants=_variants(rows))
+
+
+def phase5_probes(results, launches, card):
+    """E8 at 65,536 steps and E9 at 2,048 blocks, from the probes' run;
+    bounds: E8 8 bytes per word, E9 8 per target read and 4 per bin
+    written."""
+    grid = results["probes"]["grid_step"]
+    g = grid[-1]
+    words = g["steps"] * probes.STEP_SHAPE[0] * probes.STEP_SHAPE[1]
+    o = results["probes"]["onehot_place"]
+    nbins = o["s"] * 128
+    log(f"phase 5: grid_step ({g['steps']} steps): {g['ms']:.4f} ms, x + 1 "
+        f"{g['library_ms']:.4f} ms; onehot_place ({o['blocks']} x {o['k']} "
+        f"targets): {o['ms']:.4f} ms, scatter_add_ {o['library_ms']:.4f} ms "
+        f"on {card}")
+    return [
+        _kernel_row("grid_step", launches["grid_step"], g["max_abs_err"],
+                    g["ms"], g["plain_ms"], 8 * words, words,
+                    library_ms=g["library_ms"], steps=g["steps"],
+                    by_steps=[{k: r[k] for k in ("steps", "ms", "plain_ms",
+                                                 "library_ms")}
+                              for r in grid]),
+        _kernel_row("onehot_place", launches["onehot_place"],
+                    o["max_abs_err"], o["ms"], o["plain_ms"],
+                    8 * o["blocks"] * o["k"] + 4 * o["blocks"] * nbins,
+                    o["blocks"] * o["k"], library_ms=o["library_ms"],
+                    blocks=o["blocks"], targets=o["k"], bins=nbins)]
 
 
 def phase5_pipeline_times(run, card):
@@ -735,6 +883,15 @@ def main():
     for name in EXPERIMENTS:
         drive(f"the {name} experiment", lambda name=name: phase3_experiment(
             name, results, dev), (name,), launches)
+    drive("the expt_place (E4) experiment",
+          lambda: phase3_expt_place(results, dev), ("place_grouped",),
+          launches)
+    drive("the expt_emit_wide (E7) experiment",
+          lambda: phase3_expt_emit_wide(results, dev), ("emit_window",),
+          launches)
+    drive("the profile_r2 probes (E8, E9)",
+          lambda: phase3_probes(runs[0], results, dev),
+          ("grid_step", "onehot_place"), launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches)
     rows.append(phase5_split_kernels(sparse, launches))
@@ -742,6 +899,9 @@ def main():
     rows.append(phase5_fields(sparse, launches, dev))
     for name in EXPERIMENTS:
         rows.append(phase5_window(name, results, launches, dev, card))
+    rows.append(phase5_place_grouped(results, launches, dev, card))
+    rows.append(phase5_emit_window(results, launches, dev, card))
+    rows.extend(phase5_probes(results, launches, card))
     for run in runs:
         phase5_pipeline_times(run, card)
     for run in split_runs:

@@ -1,18 +1,19 @@
-"""The windowed placement experiments E2, E3, E5 and E6 on the card.
+"""The TPU experiments E2-E9 of the repository's ``benchmarks/`` on the card.
 
-One module per experiment script of the repository's ``benchmarks/``, under
-the same file name: ``expt_place_wide`` (E2), ``expt_place2`` (E3),
-``expt_place_narrow`` (E5) and ``expt_place_fixed`` (E6).  Each carries a
-byte-equal numpy copy of its script's input generator, its variants and
-its sizes, and a ``main`` that holds every variant against the plain
-windowed placement on the whole output and, where the variant is exact
-(every fill pass, every row placed), against the port's K2 up to each
-image's last chunk start, then times the variant and K2 on the same
-inputs with CUDA events:
+One module per experiment script, under the same file name:
+``expt_place_wide`` (E2), ``expt_place2`` (E3), ``expt_place`` (E4),
+``expt_place_narrow`` (E5), ``expt_place_fixed`` (E6), ``expt_emit_wide``
+(E7) and ``profile_r2`` (E8, E9 and the probes around them).  Each carries
+a byte-equal numpy copy of its script's input generator, its variants and
+its sizes, and a ``main`` that holds every variant against its plain
+version on the whole output and, where the variant computes the
+production function, against the port's K2 (up to each image's last chunk
+start) or K4, then times the variant beside it with CUDA events:
 
     python -m qoipp_tpu_torch.benchmarks.expt_place_wide
 
-The helpers below are what the four experiment scripts share.
+``--runs 0`` checks parity alone, which also runs on the CPU.  The helpers
+below are what the placement experiments share.
 """
 
 from __future__ import annotations
@@ -74,11 +75,16 @@ def run_variant(case: str, name: str, call, pb, emits, n_cap: int,
 
 
 def describe(row: dict) -> str:
-    """One line of an experiment's report."""
-    ok = row["max_abs_err"] == 0 and row["k2_err"] in (None, 0)
-    text = (f"{row['case']:>12} {row['variant']:>20}: parity "
-            f"{'OK' if ok else 'FAIL'} (plain {row['max_abs_err']}, K2 "
-            f"prefix {'-' if row['k2_err'] is None else row['k2_err']})")
+    """One line of an experiment's report; a max_abs_err of None marks a
+    timing-only variant, whose output is not compared."""
+    if row["max_abs_err"] is None:
+        parity = "not compared (timing only)"
+    else:
+        ok = row["max_abs_err"] == 0 and row["k2_err"] in (None, 0)
+        parity = (f"{'OK' if ok else 'FAIL'} (plain {row['max_abs_err']}, "
+                  f"K2 prefix "
+                  f"{'-' if row['k2_err'] is None else row['k2_err']})")
+    text = f"{row['case']:>12} {row['variant']:>20}: parity {parity}"
     if row["ms"] is not None:
         text += (f"  {row['ms']:.4f} ms, K2 {row['k2_ms']:.4f} ms "
                  f"({row['k2_ms'] / row['ms']:.2f}x)")
@@ -88,7 +94,8 @@ def describe(row: dict) -> str:
 def finish(rows: list) -> list:
     """Raise if any variant disagreed; else return the rows."""
     bad = [f"{r['case']}/{r['variant']}" for r in rows
-           if r["max_abs_err"] != 0 or r["k2_err"] not in (None, 0)]
+           if r["max_abs_err"] not in (None, 0)
+           or r["k2_err"] not in (None, 0)]
     if bad:
         raise RuntimeError(f"variants disagree: {bad}")
     return rows

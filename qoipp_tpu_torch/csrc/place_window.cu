@@ -1,10 +1,14 @@
-// E2, E3, E5, E6: the windowed placement experiments of K2.
+// E2-E6: the windowed placement experiments of K2.
 //
-// Replaces the Pallas kernels of four TPU layout experiments:
+// Replaces the Pallas kernels of five TPU layout experiments:
 //   E2 benchmarks/expt_place_wide.py:   place_wide (make_wide_kernel)
 //   E3 benchmarks/expt_place2.py:       place_fill2 (_kernel2)
+//   E4 benchmarks/expt_place.py:        make_variant(...).run (kernel)
 //   E5 benchmarks/expt_place_narrow.py: place_fill_narrow (make_narrow_kernel)
 //   E6 benchmarks/expt_place_fixed.py:  place_variant (make_kernel)
+//
+// E4 computes another function, the grouped summed placement; its section
+// below says how it differs.  The rest of this note is E2, E3, E5 and E6.
 //
 // All four compute the windowed placement (ops/place_window.py): row r of
 // an image writes emits[r] at pixel pb[r] iff pb[r+1] > pb[r] (pb[Q] :=
@@ -29,6 +33,8 @@
 // What bounds it on the card: bytes — 8 per candidate row read and 4 per
 // pixel written; at the experiments' photo-like sizes (8 images of
 // ~254 K pixels) the launch is one wave of ~250 blocks and latency-bound.
+// E4 is bound the same way: 8 bytes per row, 4 per pixel; at its script's
+// size (128 images of 2,088,960 pixels, 32,640 blocks) that is 0.41 ms.
 // What each kernel keeps of its experiment's question:
 //   E2: kLanes (128/256/512) candidate rows staged per step, coalesced;
 //   E3: two windows per block from one staged range; the fill passes of
@@ -38,7 +44,11 @@
 //       stripes of 128 pixels is placed output-driven (threads over the
 //       span search the group's rows), wider groups row-driven;
 //   E6: kDma, kSlabs and kFill knock out the row reads, the placement and
-//       fill passes (reach 2^kFill - 1) at compile time.
+//       fill passes (reach 2^kFill - 1) at compile time;
+//   E4: the TPU's lr_mode (how a window finds its first candidate slab and
+//       how many it visits) as a template parameter; rows are read straight
+//       from global memory (the sum rule needs no look-ahead row) and the
+//       fill is three flag ballots per warp in place of six passes.
 #include "qoipp_kernels.cuh"
 
 namespace {
@@ -142,6 +152,29 @@ __device__ void fill_pass(S& s, int k, int only) {
   __syncthreads();
 }
 
+// The decoupled look-back of unit `me` (thread 0 alone): publish the
+// unit's last output `last` if the unit owns it, else "inherit"; walk back
+// to the nearest earlier unit of the image (status index >= first) whose
+// value is known; if inheriting, publish that.  Returns the carry into the
+// unit (0 for the image's first).
+__device__ uint32_t look_back(unsigned long long* status, long long me,
+                              long long first, bool own, uint32_t last) {
+  atomicExch(status + me, own ? (kValue | last) : kInherit);
+  uint32_t carry = 0;
+  for (long long v = me - 1; v >= first; --v) {
+    unsigned long long st;
+    while ((st = *reinterpret_cast<volatile unsigned long long*>(
+                status + v)) == 0)
+      __nanosleep(64);
+    if (st >= kValue) {
+      carry = static_cast<uint32_t>(st);
+      break;
+    }
+  }
+  if (!own) atomicExch(status + me, kValue | carry);
+  return carry;
+}
+
 // The look-back: publish the unit's last output (or "inherit"), resolve
 // the carry into its first window, publish the resolved last output, and
 // write the unit's windows.  Thread 0 walks; all threads write.
@@ -152,23 +185,9 @@ __device__ void finish(S& s, unsigned long long* status, const Unit& at,
     int own = -1;  // the last window of the unit whose last pixel is written
     for (int h = NW - 1; h >= 0 && own < 0; --h)
       if (s.flag[h * kWin + kWin - 1]) own = h;
-    const long long me = at.first + at.u;
-    if (own >= 0)
-      atomicExch(status + me, kValue | s.word[own * kWin + kWin - 1]);
-    else
-      atomicExch(status + me, kInherit);
-    uint32_t carry = 0;
-    for (long long v = me - 1; v >= at.first; --v) {
-      unsigned long long st;
-      while ((st = *reinterpret_cast<volatile unsigned long long*>(
-                  status + v)) == 0)
-        __nanosleep(64);
-      if (st >= kValue) {
-        carry = static_cast<uint32_t>(st);
-        break;
-      }
-    }
-    if (own < 0) atomicExch(status + me, kValue | carry);
+    uint32_t carry = look_back(
+        status, at.first + at.u, at.first, own >= 0,
+        own >= 0 ? s.word[own * kWin + kWin - 1] : 0u);
     for (int h = 0; h < NW; ++h) {
       s.carry[h] = carry;
       const int last = h * kWin + kWin - 1;
@@ -356,6 +375,139 @@ place_variant_kernel(const int32_t* __restrict__ pb,
   finish<1>(s, status, at, out, n_cap);
 }
 
+// ---- E4: grouped summed placement ----------------------------------------
+//
+// One block per step of g windows of `win` pixels (a multiple of 128, g *
+// win <= kMaxStep).  Every row with pb in a window of the step adds its low
+// and high 16-bit halves into two 32-bit sums of its pixel (shared atomics,
+// so rows that share a pixel add, as the TPU's one-hot dots did) and marks
+// the pixel placed.  A pixel's word is lo | hi << 16 of its sums; a pixel
+// takes the word of the nearest placed pixel at or to its left in the
+// step, at most 63 away, else the carry: the previous step's last output
+// by the look-back, 0 at the start of each image.
+//
+// The candidate rows of window w0 .. w0 + win, in 128-row slabs: the block
+// of the step starts at slab blk = base[first] / 8 * 8 (slab 0 with
+// static_in, where the block holds only LENR = g * win / 128 + 16 slabs);
+//   kCnt:    from the first slab of the block whose last pb >= w0 (counted
+//            here), win / 128 + 2 slabs, then on while rows still fall in
+//            the window (the TPU stopped at those slabs);
+//   kDyn:    from the same slab, only while rows fall in the window;
+//   kSmem:   like kCnt from slab base[w] (base holds one entry per window);
+//   kStatic: win / 128 + 2 slabs from the block's first, whatever the
+//            window (timing only: it places the wrong rows on purpose).
+enum LrMode { kCnt = 0, kDyn = 1, kSmem = 2, kStatic = 3 };
+constexpr int kMaxStep = 16384;  // pixels per block: 144 KB of shared memory
+
+__device__ __forceinline__ int32_t row_pb(const int32_t* prow, long long r,
+                                          long long Q, int32_t n_cap) {
+  return r < Q ? prow[r] : n_cap;
+}
+
+// Warp-wide: the word of the nearest placed pixel at or left of step pixel
+// p (the 32 lanes on one aligned 32-pixel chunk), at most 63 away, from
+// the placed-flag ballots of the chunk and the two before it.
+__device__ __forceinline__ bool nearest(const uint8_t* flag,
+                                        const uint32_t* word, int p,
+                                        uint32_t& v) {
+  const int lane = threadIdx.x & 31;
+  const int c = p - lane;
+  const unsigned m0 = __ballot_sync(~0u, flag[p] != 0);
+  const unsigned m1 = __ballot_sync(~0u, c >= 32 && flag[p - 32] != 0);
+  const unsigned m2 = __ballot_sync(~0u, c >= 64 && flag[p - 64] != 0);
+  const unsigned mine = m0 & (0xFFFFFFFFu >> (31 - lane));
+  const int src = mine ? c + 31 - __clz(mine)
+                  : m1 ? c - 1 - __clz(m1)
+                  : m2 ? c - 33 - __clz(m2) : -1;
+  if (src < 0 || p - src > 63) return false;
+  v = word[src];
+  return true;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+place_grouped_kernel(const int32_t* __restrict__ pb,
+                     const uint32_t* __restrict__ em,
+                     const int32_t* __restrict__ base,
+                     uint32_t* __restrict__ out, unsigned long long* status,
+                     long long Q, long long n_cap, long long total, int nbase,
+                     int win, int g, int static_in) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  __shared__ unsigned long long ticket;
+  __shared__ uint32_t carry_in;
+  const int step = win * g;
+  uint32_t* lo = reinterpret_cast<uint32_t*>(raw);  // then the word
+  uint32_t* hi = lo + step;
+  uint8_t* flag = reinterpret_cast<uint8_t*>(hi + step);
+  if (threadIdx.x == 0) ticket = atomicAdd(status + total, 1ull);
+  uint4* z = reinterpret_cast<uint4*>(raw);
+  for (int i = threadIdx.x; i < 9 * step / 16; i += kThreads)
+    z[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const long long nsteps = n_cap / step;
+  const long long t = static_cast<long long>(ticket);
+  const long long b = t / nsteps, j = t % nsteps;
+  const int32_t* prow = pb + b * Q;
+  const uint32_t* erow = em + b * Q;
+  const int32_t* brow = base + b * nbase;
+  const int32_t ncap = static_cast<int32_t>(n_cap);
+  const long long blk = brow[kMode == kSmem ? j * g : j] / 8 * 8;
+  const long long at = static_in ? 0 : blk;  // the slab the block is read at
+  const long long nslab = (Q + kSlab - 1) / kSlab;
+  const long long lim = static_in ? min(nslab, at + g * (win / kSlab) + 16)
+                                  : nslab;
+  const long long rlim = min(lim * kSlab, Q);
+  for (int gi = 0; gi < g; ++gi) {
+    const int w0 = static_cast<int>(j * step) + gi * win;
+    long long s0 = at;
+    if (kMode == kCnt || kMode == kDyn) {
+      for (;;) {  // count the slabs whose last pb is below w0
+        const long long k = s0 + threadIdx.x;
+        const int n = __syncthreads_count(
+            k < lim && row_pb(prow, k * kSlab + kSlab - 1, Q, ncap) < w0);
+        s0 += n;
+        if (n < kThreads) break;
+      }
+    } else if (kMode == kSmem) {
+      s0 = at + brow[j * g + gi] - blk;
+    }
+    long long r = s0 * kSlab;
+    const long long rfix =
+        kMode == kDyn ? r : min((s0 + win / kSlab + 2) * kSlab, rlim);
+    for (; r < rlim; r += kThreads) {
+      if (r >= rfix && (kMode == kStatic || prow[r] >= w0 + win)) break;
+      const long long i = r + threadIdx.x;
+      if (i < rlim) {
+        const int32_t p = prow[i];
+        if (p >= w0 && p < w0 + win) {
+          const int x = p - w0 + gi * win;
+          const uint32_t e = erow[i];
+          atomicAdd(lo + x, e & 0xFFFFu);
+          atomicAdd(hi + x, e >> 16);
+          flag[x] = 1;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < step; x += kThreads) lo[x] |= hi[x] << 16;
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the step's last output, then the look-back
+    uint32_t v = 0;
+    const bool own = nearest(flag, lo, step - 32 + threadIdx.x, v);
+    const bool own31 = __shfl_sync(~0u, static_cast<int>(own), 31) != 0;
+    const uint32_t v31 = __shfl_sync(~0u, v, 31);
+    if (threadIdx.x == 0)
+      carry_in = look_back(status, t, t - j, own31, v31);
+  }
+  __syncthreads();
+  uint32_t* dst = out + b * n_cap + j * step;
+  for (int x = threadIdx.x; x < step; x += kThreads) {
+    uint32_t v = 0;
+    dst[x] = nearest(flag, lo, x, v) ? v : carry_in;
+  }
+}
+
 // ---- launch helpers --------------------------------------------------------
 
 template <class K, class... Extra>
@@ -451,5 +603,29 @@ QK_API int qk_place_variant(const void* pb, const void* emits,
   if (!do_slabs)
     return run_variant<false, false>(n_fill, B, st, pb, emits, base, out,
                                      status, Q, n_cap);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// E4: base (B, nbase) int32 holds a slab per step (a slab per window in
+// smem mode), status (B * n_cap / (win * g) + 1); win % 128 == 0,
+// win * g <= 16384 and divides n_cap; mode 0 cnt, 1 dyn, 2 smem, 3 static.
+QK_API int qk_place_grouped(const void* pb, const void* emits,
+                            const void* base, void* out, void* status, int B,
+                            long long Q, long long n_cap, int nbase, int win,
+                            int g, int mode, int static_in, void* stream) {
+  const long long step = static_cast<long long>(win) * g;
+  if (win <= 0 || win % kSlab || g < 1 || step > kMaxStep || n_cap % step)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const size_t smem = 9 * static_cast<size_t>(step);
+  const long long units = n_cap / step;
+#define QK_GROUPED(M)                                                        \
+  case M:                                                                   \
+    return run(place_grouped_kernel<M>, smem, B, units, st, pb, emits, base, \
+               out, status, Q, n_cap, nbase, win, g, static_in);
+  switch (mode) {
+    QK_GROUPED(kCnt) QK_GROUPED(kDyn) QK_GROUPED(kSmem) QK_GROUPED(kStatic)
+  }
+#undef QK_GROUPED
   return static_cast<int>(cudaErrorInvalidValue);
 }

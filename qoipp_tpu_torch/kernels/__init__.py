@@ -1,6 +1,6 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
-The port's eleven kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
+The port's fifteen kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
 sm_90a behind a plain C interface.  On first use they are built with
 ``nvcc`` (one compiler process per source, all at once, then one link)
 into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the root of the
@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
-           "logfill.cu", "fields.cu", "place_window.cu")
+           "logfill.cu", "fields.cu", "place_window.cu", "emit_window.cu",
+           "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -37,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
             "replay_summary": 0, "logfill": 0, "fields": 0,
             "place_wide": 0, "place_fill2": 0, "place_fill_narrow": 0,
-            "place_variant": 0}
+            "place_variant": 0, "place_grouped": 0, "emit_window": 0,
+            "grid_step": 0, "onehot_place": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -62,6 +64,14 @@ _SIGNATURES = {
     "qk_place_fill2": [_P] * 5 + [_I, _L, _L, _P],
     # ..., n_cap, do_dma, do_slabs, n_fill, stream
     "qk_place_variant": [_P] * 5 + [_I, _L, _L, _I, _I, _I, _P],
+    # ..., n_cap, nbase, win, g, lr_mode, static_in, stream
+    "qk_place_grouped": [_P] * 5 + [_I, _L, _L] + [_I] * 5 + [_P],
+    # off, tlo, thn, base, out, B, C, out_cap, lanes, stream
+    "qk_emit_window": [_P] * 5 + [_I, _L, _L, _I, _P],
+    # x, y, steps, stream
+    "qk_grid_step": [_P, _P, _L, _P],
+    # t, v, out, nblk, K, nbins, stream
+    "qk_onehot_place": [_P] * 3 + [_I, _L, _I, _P],
 }
 
 _lock = threading.Lock()

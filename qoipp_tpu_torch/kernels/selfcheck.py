@@ -31,7 +31,22 @@ bit-exact.  The cases:
               equal pb, rows with pb >= n_cap, a 62-pixel run crossing a
               window edge, an empty tail of three windows, a first pb > 0;
               E2 at every lanes, E5 at ns 1, 2, 4 and 64, E6 at every
-              do_dma / do_slabs / n_fill it takes.
+              do_dma / do_slabs / n_fill it takes;
+  place_grouped (E4; the whole output): (win, g) = (8192, 1) and (1024,
+              2), B = 2 and B = 1; equal-pb runs of 2, 3 and 256 rows, rows
+              with pb >= n_cap, a gap over 63 across a window edge inside a
+              step (the fill spans the step) and one across a step edge (the
+              carry), an empty tail of several steps; lr_mode cnt, dyn and
+              smem there, and every lr_mode with and without static_inputs
+              on 1,000 rows, which the timing-only modes' fixed range holds;
+  emit_window (E7; the whole output): every lanes; C not a multiple of
+              lanes, rows of 1-6 bytes and gaps of 7-8, a row across a
+              window edge, a run of 20,000 equal-off rows (longer than the
+              TPU kernel's lenr slabs at every lanes), rows at and past
+              out_cap;
+  grid_step (E8): random words and 0xFFFFFFFF, which wraps to 0;
+  onehot_place (E9, to TOLERANCE): unsorted targets, a bin hit 64 times,
+              targets outside the bins, K not a multiple of the block.
 """
 
 from __future__ import annotations
@@ -39,9 +54,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import (compact_kernel, emit_kernel, fields_kernel, place_kernel,
-                   place_window, replay_kernel)
+from ..ops import (compact_kernel, emit_kernel, emit_window, fields_kernel,
+                   place_kernel, place_window, probes, replay_kernel)
 from ..ops.bitops import hash6
+
+# largest |kernel - plain| each kernel may show (0 where not listed): E9's
+# float32 sums, for the order in which duplicates add
+TOLERANCE = {"onehot_place": 1e-6}
 
 
 def _t(a, device):
@@ -331,13 +350,125 @@ def _place_variant(device) -> int:
     return err
 
 
+def _grouped_image(rng, win, g, n_cap, dense):
+    """Sorted pixel positions of one E4 image: ``dense`` increments
+    (0 makes equal-pb rows) with a run of win + 300 equal rows (more than
+    the TPU kernel's win / 128 + 2 slabs hold) up to a gap of 100 across
+    the window edge inside step 1 (a step edge at g = 1), on to a gap of
+    100 across the edge of steps 1 and 2, a little further, then an empty
+    tail of more than two steps."""
+    step = win * g
+    out, p = [], 0
+    for stop, jump in ((step + win - 24, step + win + 76),
+                       (2 * step - 30, 2 * step + 70), (2 * step + 500, None)):
+        while p < stop:
+            out.append(p)
+            p += int(rng.choice(dense))
+        if jump is not None:
+            out.append(stop)
+            p = jump
+    assert 5 * step == n_cap
+    out[50:50] = [out[50]] * (win + 300)
+    return np.array(out, np.int64)
+
+
+def _grouped_cases(rng, win, g):
+    """[(pb, emits, n_cap)] numpy inputs of E4: B = 2 (image 0 has equal-pb
+    runs of 2, 3 and 256 rows and runs past n_cap; image 1 is
+    _grouped_image) and B = 1 (image 1 alone)."""
+    n_cap = 5 * win * g
+    one = _grouped_image(rng, win, g, n_cap, [0, 1, 1, 2, 3, 5])
+    inc = rng.choice([0, 1, 1, 2, 3, 5, 17, 62], one.size)
+    inc[[100, 200, 201]] = 0
+    inc[300:555] = 0
+    zero = np.cumsum(inc) - inc
+    assert zero[-1] >= n_cap
+    pb = np.stack([zero, one]).astype(np.int32)
+    pb[1, -5:] = n_cap + np.arange(5)  # rows at and past n_cap
+    return [(pb, _words(rng, pb.shape), n_cap),
+            (pb[1:], _words(rng, (1, pb.shape[1])), n_cap)]
+
+
+def _place_grouped(device) -> int:
+    pw = place_window
+    err = 0
+
+    def run(pb, em, n_cap, win, g, mode, static_in):
+        tpb, tem = _t(pb, device), _t(em, device)
+        base = pw.step_base_rows(tpb, n_cap, win if mode == "smem"
+                                 else win * g)
+        return max_abs_err(
+            pw.place_grouped(tpb, tem, base, n_cap, win=win, g=g,
+                             lr_mode=mode, static_inputs=static_in),
+            pw.summed_place_reference(tpb, tem, n_cap, win, g))
+
+    for win, g in ((pw.WIN, 1), (1024, 2)):
+        rng = np.random.default_rng(12 + g)
+        for pb, em, n_cap in _grouped_cases(rng, win, g):
+            for mode in ("cnt", "dyn", "smem"):
+                err = max(err, run(pb, em, n_cap, win, g, mode, False))
+        # 1,000 rows over five steps: every window's rows lie in the fixed
+        # range the timing-only modes read
+        inc = rng.choice([0, 1, 2, 5, 17, 62, 200], (2, 1000))
+        pb = (np.cumsum(inc, axis=1) - inc).astype(np.int32)
+        n_cap = 5 * win * g
+        em = _words(rng, pb.shape)
+        for mode in pw.LR_MODES:
+            for static_in in (False, True):
+                err = max(err, run(pb, em, n_cap, win, g, mode, static_in))
+    return err
+
+
+def _emit_window(device) -> int:
+    rng = np.random.default_rng(13)
+    win = emit_kernel.WIN
+    b, c, out_cap = 3, 25000, 16 * win
+    nbytes = rng.choice([1, 2, 3, 4, 5, 6, 6, 7, 8], (b, c))
+    nbytes[1, 100:20100] = 0  # a run of 20,000 equal offs, then its cover
+    off = 14 + np.cumsum(nbytes, axis=1) - nbytes
+    off[0, 1500:] += win - 3 - off[0, 1500]  # row 1500 crosses an edge
+    off[2] += out_cap - off[2, c // 2]  # rows at and past out_cap
+    assert off[0].max() < out_cap and off[2].max() >= out_cap
+    args = [_t(x.astype(np.int32), device) for x in (off,)] + [
+        _t(_words(rng, (b, c)), device) for _ in range(2)]
+    want = emit_window.emit_wide_reference(*args, out_cap)
+    return max(max_abs_err(emit_window.emit_wide(
+        *args, emit_window.window_base_rows_w(args[0], out_cap, lanes),
+        out_cap, lanes=lanes), want)
+        for lanes in place_window.WIDE_LANES)
+
+
+def _grid_step(device) -> int:
+    x = _words(np.random.default_rng(14), (37, 8, 128))
+    x[0, 0, :7] = 0xFFFFFFFF
+    tx = _t(x, device)
+    got = probes.grid_step_probe(tx)
+    assert not bool(got[0, 0, :7].any())
+    return max_abs_err(got, probes.grid_step_reference(tx))
+
+
+def _onehot_place(device) -> float:
+    rng = np.random.default_rng(15)
+    nblk, k, s = 40, 2055, probes.S
+    t = rng.integers(0, s * 128, (nblk, k))
+    t[3, rng.permutation(k)[:64]] = 1000  # a bin hit 64 times
+    t[5, :4] = (-1, s * 128, s * 128 + 5, -300)  # outside the bins
+    v = rng.random((nblk, k)).astype(np.float32)
+    tt, tv = _t(t.astype(np.int32), device), _t(v, device)
+    got = probes.onehot_place(tt, tv, s)
+    return float((got - probes.onehot_place_reference(tt, tv, s)).abs().max())
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
          "emit": _emit, "replay_summary": _replay_summary,
          "logfill": _logfill, "fields": _fields, "place_wide": _place_wide,
          "place_fill2": _place_fill2, "place_fill_narrow": _place_fill_narrow,
-         "place_variant": _place_variant}
+         "place_variant": _place_variant, "place_grouped": _place_grouped,
+         "emit_window": _emit_window, "grid_step": _grid_step,
+         "onehot_place": _onehot_place}
 
 
-def check(name: str, device) -> int:
-    """Max |kernel - plain| of kernel ``name`` over its edge cases."""
+def check(name: str, device):
+    """Max |kernel - plain| of kernel ``name`` over its edge cases (an int
+    but for onehot_place's float32 bins)."""
     return CASES[name](torch.device(device))

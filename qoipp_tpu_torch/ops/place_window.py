@@ -1,4 +1,4 @@
-"""E2, E3, E5, E6: the windowed placement experiments (csrc/place_window.cu).
+"""E2-E6: the windowed placement experiments (csrc/place_window.cu).
 
 Four TPU layout experiments of the JAX package's K2 (``benchmarks/``
 ``expt_place_wide``, ``expt_place2``, ``expt_place_narrow``,
@@ -21,6 +21,11 @@ window_base_rows_w for E2) names, and raises on any failure.  Words are
 int32 tensors holding the uint32 bits.  Knobs that only shaped the TPU
 kernel (E2's ``hoist``, E6's ``prec``) are accepted and launch the same
 kernel.
+
+E4 (``benchmarks/expt_place.py``) computes another function, the
+**grouped summed placement** (summed_place_reference): rows that share a
+pixel add where the windowed placement keeps the last, and the fill runs
+over steps of g windows; ``place_grouped`` is its wrapper.
 """
 
 from __future__ import annotations
@@ -34,20 +39,40 @@ SW = WIN // 128  # 128-pixel stripes per window
 SLAB = 128  # candidate rows per base_step unit
 WIDE_LANES = (128, 256, 512)  # E2's candidate widths
 PRECS = ("highest", "bytes4")  # E6's MXU precisions on the TPU
+LR_MODES = ("cnt", "dyn", "smem", "static")  # E4's candidate-row modes
+DOT_PRECISIONS = ("default", "high", "highest")  # E4's MXU precisions
+MAX_STEP = 16384  # csrc/place_window.cu kMaxStep: pixels per E4 block
+REACH = 63  # E4's fill reach: six log-shift passes
 
 
-def window_base_rows_w(pb, n_cap: int, lanes: int):
-    """(B, n_cap // WIN + 1) int32: the number of ``lanes``-row slabs whose
-    last pb is below w * WIN, for every window edge w (Q padded to
-    ``lanes`` with pb = n_cap): window w's candidate rows are slabs
-    base[w] to base[w + 1], both included."""
-    nwin = n_cap // WIN
+def _slabs_below(pb, lanes: int, edges, pad: int):
+    """(B, len(edges)) int32: per edge, the number of ``lanes``-row slabs
+    whose last pb is below it (Q padded to ``lanes`` with pb = pad)."""
     pad_q = (-pb.shape[1]) % lanes
     if pad_q:
-        pb = torch.nn.functional.pad(pb, (0, pad_q), value=n_cap)
+        pb = torch.nn.functional.pad(pb, (0, pad_q), value=pad)
     lastpb = pb[:, lanes - 1 :: lanes]
-    bounds = torch.arange(nwin + 1, dtype=pb.dtype, device=pb.device) * WIN
-    return (lastpb[:, :, None] < bounds).sum(dim=1, dtype=torch.int32)
+    return (lastpb[:, :, None] < edges).sum(dim=1, dtype=torch.int32)
+
+
+def window_base_rows_w(pb, n_cap: int, lanes: int, pad=None):
+    """(B, n_cap // WIN + 1) int32: the number of ``lanes``-row slabs whose
+    last pb is below w * WIN, for every window edge w (Q padded to
+    ``lanes`` with pb = pad, n_cap by default): window w's candidate rows
+    are slabs base[w] to base[w + 1], both included."""
+    edges = torch.arange(n_cap // WIN + 1, dtype=pb.dtype,
+                         device=pb.device) * WIN
+    return _slabs_below(pb, lanes, edges, n_cap if pad is None else pad)
+
+
+def step_base_rows(pb, n_cap: int, step: int):
+    """(B, n_cap // step) int32: E4's base_step, the number of 128-row
+    slabs whose last pb is below j * step for every step j (Q padded with
+    pb = n_cap).  step = win * g names each step's first candidate slab;
+    step = win each window's, for lr_mode "smem"."""
+    edges = torch.arange(n_cap // step, dtype=pb.dtype,
+                         device=pb.device) * step
+    return _slabs_below(pb, SLAB, edges, n_cap)
 
 
 def window_base_rows(pb, n_cap: int):
@@ -75,7 +100,6 @@ def windowed_place_reference(pb, emits, n_cap: int, n_fill: int = 6,
     _require(n_cap % WIN == 0, f"n_cap {n_cap} is not a multiple of {WIN}")
     b, q = pb.shape
     dev = pb.device
-    nwin = n_cap // WIN
     pos = torch.full((b, n_cap), -1, dtype=torch.int32, device=dev)
     val = torch.zeros((b, n_cap), dtype=torch.int32, device=dev)
     if place and q:
@@ -83,36 +107,94 @@ def windowed_place_reference(pb, emits, n_cap: int, n_fill: int = 6,
         at = pb[bi, ri].long()
         pos[bi, at] = at.to(torch.int32)
         val[bi, at] = emits[bi, ri]
-    # the nearest writer at or left of each pixel, inside its window
-    near = torch.cummax(pos.view(b, nwin, WIN), dim=2).values.view(b, n_cap)
-    px = torch.arange(n_cap, dtype=torch.int32, device=dev)
-    owned = (near >= 0) & (px - near < (1 << n_fill))
+    return _fill(pos, val, WIN, (1 << n_fill) - 1)
+
+
+def _fill(pos, val, unit: int, reach: int):
+    """pos (B, n) int32: a pixel's own index where it is placed, else -1;
+    val its word.  Each pixel takes the word of the nearest placed pixel at
+    or to its left in its unit of ``unit`` pixels, at most ``reach`` away;
+    any other pixel the carry, the previous unit's last output (0 in the
+    first unit of each image).  Returns (B, n) int32."""
+    b, n = pos.shape
+    dev = pos.device
+    nunit = n // unit
+    near = torch.cummax(pos.view(b, nunit, unit), dim=2).values.view(b, n)
+    px = torch.arange(n, dtype=torch.int32, device=dev)
+    owned = (near >= 0) & (px - near <= reach)
     local = torch.gather(val, 1, near.clamp(min=0).long())
-    # the carry into window w: the last output of the nearest earlier
-    # window whose last pixel is its own, else 0
-    last_owned = owned[:, WIN - 1 :: WIN]
-    last_val = local[:, WIN - 1 :: WIN]
-    w = torch.arange(nwin, dtype=torch.int32, device=dev)
-    owner = torch.cummax(torch.where(last_owned, w, -1), dim=1).values
+    # the carry into unit u: the last output of the nearest earlier unit
+    # whose last pixel is its own, else 0
+    last_owned = owned[:, unit - 1 :: unit]
+    last_val = local[:, unit - 1 :: unit]
+    u = torch.arange(nunit, dtype=torch.int32, device=dev)
+    owner = torch.cummax(torch.where(last_owned, u, -1), dim=1).values
     src = torch.cat([torch.full((b, 1), -1, dtype=torch.int32, device=dev),
                      owner[:, :-1]], dim=1)
     carry = torch.where(src >= 0, torch.gather(last_val, 1,
                                                src.clamp(min=0).long()), 0)
-    return torch.where(owned, local, carry.repeat_interleave(WIN, dim=1))
+    return torch.where(owned, local, carry.repeat_interleave(unit, dim=1))
+
+
+def _grouped_checks(n_cap: int, win: int, g: int) -> int:
+    """E4's asserts; returns the step, win * g pixels."""
+    _require(win > 0 and win % 128 == 0,
+             f"win {win} is not a positive multiple of 128")
+    _require(g >= 1, f"g must be at least 1, got {g}")
+    step = win * g
+    _require(n_cap % step == 0, f"n_cap {n_cap} is not a multiple of win "
+             f"* g = {step}")
+    _require(step <= MAX_STEP, f"win * g = {step} exceeds {MAX_STEP}")
+    return step
+
+
+def summed_place_reference(pb, emits, n_cap: int, win: int = WIN,
+                           g: int = 1):
+    """Plain version of E4, the grouped summed placement.
+
+    A row places at pixel pb iff 0 <= pb < n_cap; there is no next-row
+    test.  The rows that share a pixel add their low 16-bit halves and
+    their high halves as integers: the pixel's word is (sum lo) | (sum hi
+    << 16) mod 2**32.  This equals the TPU kernel's float32 one-hot sums
+    while at most 256 rows share a pixel (256 * 65535 < 2**24).  Within
+    each step of g * win pixels a pixel takes the word of the nearest
+    placed pixel at or to its left in the step, at most 63 away, else the
+    carry: the previous step's last output, 0 at the start of each image.
+    pb, emits (B, Q) int32 -> (B, n_cap) int32."""
+    step = _grouped_checks(n_cap, win, g)
+    b, _ = pb.shape
+    dev = pb.device
+    ok = (pb >= 0) & (pb < n_cap)
+    at = torch.where(ok, pb, n_cap).long()  # column n_cap collects the rest
+    e = emits.long()
+    sums = [torch.zeros((b, n_cap + 1), dtype=torch.int64, device=dev)
+            .scatter_add_(1, at, half)[:, :n_cap]
+            for half in (e & 0xFFFF, (e >> 16) & 0xFFFF)]
+    word = (sums[0] | (sums[1] << 16)) & 0xFFFFFFFF
+    word = torch.where(word >= 1 << 31, word - (1 << 32), word).to(
+        torch.int32)
+    del sums
+    placed = torch.zeros((b, n_cap + 1), dtype=torch.bool, device=dev)
+    placed.scatter_(1, at, True)
+    px = torch.arange(n_cap, dtype=torch.int32, device=dev)
+    pos = torch.where(placed[:, :n_cap], px, -1)
+    return _fill(pos, word, step, REACH)
 
 
 def _launch(name, entry, pb, emits, base_step, n_cap, units_per_image,
-            *extra):
+            *extra, nbase=None):
     """Check the inputs of a CUDA call, allocate the output and the
     look-back status (one word per unit of windows, then the ticket
-    counter), and launch ``entry`` with ``extra`` int arguments."""
+    counter), and launch ``entry`` with ``extra`` int arguments.  base_step
+    has ``nbase`` entries per image (n_cap // WIN + 1 by default)."""
     b, q = pb.shape
     dev = pb.device
-    _require(n_cap % WIN == 0, f"n_cap {n_cap} is not a multiple of {WIN}")
+    _require(nbase is not None or n_cap % WIN == 0,
+             f"n_cap {n_cap} is not a multiple of {WIN}")
     kernels.check(pb, "pb", torch.int32, (b, q), dev)
     kernels.check(emits, "emits", torch.int32, (b, q), dev)
     kernels.check(base_step, "base_step", torch.int32,
-                  (b, n_cap // WIN + 1), dev)
+                  (b, nbase or n_cap // WIN + 1), dev)
     if n_cap >= 1 << 31:
         raise ValueError(f"n_cap {n_cap} does not fit int32 offsets")
     out = torch.empty((b, n_cap), dtype=torch.int32, device=dev)
@@ -191,3 +273,46 @@ def place_variant(pb, emits, base_step, n_cap: int, do_dma: bool = True,
         return windowed_place_reference(pb, emits, n_cap, n_fill, do_slabs)
     return _launch("place_variant", "qk_place_variant", pb, emits, base_step,
                    n_cap, n_cap // WIN, int(do_dma), int(do_slabs), n_fill)
+
+
+def place_grouped(pb, emits, base_step, n_cap: int, win: int = WIN,
+                  g: int = 1, lr_mode: str = "dyn",
+                  static_inputs: bool = False, precision: str = "highest",
+                  fuse_dot: bool = False, emit_whole: bool = True):
+    """E4: the grouped summed placement (summed_place_reference) over
+    steps of g windows of ``win`` pixels, one block per step.
+
+    pb (B, Q) int32 nondecreasing; emits (B, Q) int32; base_step int16 or
+    int32 from step_base_rows(pb, n_cap, win * g), or (lr_mode "smem")
+    step_base_rows(pb, n_cap, win).  The kernel visits every candidate slab
+    of a window, never stopping at the TPU kernel's CBR / LENR slabs:
+      "cnt":    win / 128 + 2 slabs from the first one (counted in the
+                kernel), then on while rows fall in the window;
+      "dyn":    only the slabs that intersect the window;
+      "smem":   like "cnt" from base_step's per-window slab;
+      "static", and static_inputs=True: timing only, as on the TPU: every
+                window reads a fixed row range (win / 128 + 2 slabs from the
+                step's block; with static_inputs the first g * win / 128 +
+                16 slabs of the image), so the output is right only where
+                that range holds every row of the window.
+    ``precision``, ``fuse_dot`` and ``emit_whole`` shaped the TPU kernel's
+    matrix-unit dots only and launch the same kernel.  CPU tensors take the
+    plain version.  Returns (B, n_cap) int32."""
+    b, _ = pb.shape
+    step = _grouped_checks(n_cap, win, g)
+    _require(lr_mode in LR_MODES,
+             f"lr_mode must be one of {LR_MODES}, got {lr_mode!r}")
+    _require(precision in DOT_PRECISIONS,
+             f"precision must be one of {DOT_PRECISIONS}, got {precision!r}")
+    nbase = n_cap // (win if lr_mode == "smem" else step)
+    _require(tuple(base_step.shape) == (b, nbase),
+             f"base_step shape {tuple(base_step.shape)}, expected "
+             f"{(b, nbase)}")
+    _require(base_step.dtype in (torch.int16, torch.int32),
+             f"base_step dtype {base_step.dtype}")
+    if pb.device.type == "cpu":
+        return summed_place_reference(pb, emits, n_cap, win, g)
+    return _launch("place_grouped", "qk_place_grouped", pb, emits,
+                   base_step.to(torch.int32), n_cap, n_cap // step, nbase,
+                   win, g, LR_MODES.index(lr_mode), int(static_inputs),
+                   nbase=nbase)

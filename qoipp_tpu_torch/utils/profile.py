@@ -15,8 +15,12 @@ windows at one lane and in 2^20-pixel windows at 16 lanes) and on the RGBA
 image (encode in 2^18-pixel windows at 1 and 8 lanes), and the windowed
 placement kernels on their experiments' main inputs (E2 at each lanes, E5
 at ns 2 and 4, E6 full, no-dma and bare, and K2 on the same 8 x 524,288
-photo-like rows; E3 and K2 on the 128 x 284,928 bench-like rows), base
-rows computed outside the call.
+photo-like rows; E3 and K2 on the 128 x 284,928 bench-like rows), E4's
+exact variant (8192-pixel windows, G=1, dyn) beside K2 on its script's
+128 x 286,720 rows, and E7 at 256 lanes beside K4 on its script's 8 x
+2^17 rows, base rows computed outside the call; and the profile_r2
+probes at their own sizes, E8 at 4,096 and 65,536 steps and E9 at 2,048
+blocks.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ import torch
 # (group, lower-case substring of the kernel name), first match wins
 GROUPS = (
     ("K1/K5 replay", "replay_kernel"),
+    ("E4 grouped placement", "place_grouped"),
+    ("E7 emit_wide", "emit_window"),
+    ("E8 grid probe", "grid_step"),
+    ("E9 one-hot placement", "onehot_place"),
     ("K2 place_fill", "place_fill_kernel"),
     ("E2/E3/E5/E6 windowed placement", "place_"),
     ("K3 compact", "compact_kernel"),
@@ -191,7 +199,44 @@ def _window_paths(dev):
         (f"K2 place_fill {bench}",
          lambda: place_kernel.place_fill(pb3, em3, n3)),
         (f"E3 place_fill2 {bench}",
-         lambda: PW.place_fill2(pb3, em3, base3, n3))]
+         lambda: PW.place_fill2(pb3, em3, base3, n3))] + _e4_e7_paths(dev)
+
+
+def _e4_e7_paths(dev):
+    """(label, fn) of E4 beside K2 and E7 beside K4 on their scripts' main
+    inputs, then E8 and E9 on their probe's."""
+    from ..benchmarks import expt_emit_wide, expt_place, profile_r2
+    from ..ops import emit_kernel, place_kernel, probes
+    from ..ops import emit_window as EW
+    from ..ops import place_window as PW
+
+    pb_np, em_np, _ = expt_place.gen_inputs(np.random.default_rng(0))
+    pb = torch.from_numpy(pb_np).to(dev)
+    em = torch.from_numpy(em_np.view(np.int32)).to(dev)
+    n = expt_place.N_CAP
+    base = PW.step_base_rows(pb, n, PW.WIN)
+    main = f"main {pb.shape[0]}x{pb.shape[1]}"
+    off_np, tlo_np, thn_np, cap = expt_emit_wide.gen_inputs(
+        np.random.default_rng(0), 8, 1 << 17)
+    off = torch.from_numpy(off_np).to(dev)
+    tlo, thn = (torch.from_numpy(x.view(np.int32)).to(dev)
+                for x in (tlo_np, thn_np))
+    base7 = EW.window_base_rows_w(off, cap, 256)
+    rows = "8x131072 rows"
+    return [
+        (f"K2 place_fill {main}", lambda: place_kernel.place_fill(pb, em, n)),
+        (f"E4 place_grouped dyn {main}",
+         lambda: PW.place_grouped(pb, em, base, n)),
+        (f"K4 emit_bytes {rows}",
+         lambda: emit_kernel.emit_bytes(off, tlo, thn, cap)),
+        (f"E7 emit_wide lanes=256 {rows}",
+         lambda: EW.emit_wide(off, tlo, thn, base7, cap))] + [
+        (f"E8 grid_step_probe {n} steps",
+         lambda x=torch.zeros((n,) + probes.STEP_SHAPE, dtype=torch.int32,
+                              device=dev): probes.grid_step_probe(x))
+        for n in (4096, 65536)] + [
+        (f"E9 onehot_place {profile_r2.NBLK} blocks",
+         lambda tv=profile_r2.onehot_inputs(dev): probes.onehot_place(*tv))]
 
 
 def main():

@@ -224,7 +224,8 @@ def test_port_imports_without_jax():
         "    qoipp_tpu_torch.__path__, 'qoipp_tpu_torch.')]\n"
         "assert len(names) > 25, names\n"
         "for e in ('expt_place_wide', 'expt_place2', 'expt_place_narrow',\n"
-        "          'expt_place_fixed'):\n"
+        "          'expt_place_fixed', 'expt_place', 'expt_emit_wide',\n"
+        "          'profile_r2'):\n"
         "    assert 'qoipp_tpu_torch.benchmarks.' + e in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
@@ -277,4 +278,14 @@ def test_profile_grouping_and_busy_union():
     assert profile.group_of("void (anonymous namespace)::place_variant_kernel"
                             "<true, false, 3>(int const*)") == (
         "E2/E3/E5/E6 windowed placement")
+    assert profile.group_of("void (anonymous namespace)::place_grouped_kernel"
+                            "<1>(int const*)") == "E4 grouped placement"
+    assert profile.group_of("void (anonymous namespace)::emit_window_kernel"
+                            "<256>(int const*)") == "E7 emit_wide"
+    assert profile.group_of("void (anonymous namespace)::emit_kernel("
+                            "int const*)") == "K4 emit"
+    assert profile.group_of("void (anonymous namespace)::grid_step_kernel("
+                            "uint4 const*)") == "E8 grid probe"
+    assert profile.group_of("void (anonymous namespace)::onehot_place_kernel"
+                            "(int const*)") == "E9 one-hot placement"
     assert profile.group_of("some_other_kernel") == "other"

@@ -1,18 +1,24 @@
-"""E2, E3, E5 and E6, the windowed placement experiments of K2, against the
-JAX package's Pallas kernels (benchmarks/expt_place_wide.py,
-expt_place2.py, expt_place_narrow.py, expt_place_fixed.py, loaded by path
+"""E2-E6, the placement experiments of K2, against the JAX package's
+Pallas kernels (benchmarks/expt_place_wide.py, expt_place2.py,
+expt_place.py, expt_place_narrow.py, expt_place_fixed.py, loaded by path
 and run in interpret mode) on the whole (B, n_cap) output, bit-exact.  On
-CPU tensors each wrapper takes the plain windowed placement
-(qoipp_tpu_torch.ops.place_window); the kernels themselves run on the card
-(tests/test_torch_cuda.py, chip_smoke.py).  Also: the experiment scripts' input
-generators against the scripts', window_base_rows(_w) against the JAX
-one, and the experiment scripts' parity runs at a small size."""
+CPU tensors each wrapper takes its plain version (the windowed placement,
+or E4's grouped summed placement, qoipp_tpu_torch.ops.place_window); the
+kernels themselves run on the card (tests/test_torch_cuda.py,
+chip_smoke.py).  Also: the experiment scripts' input generators against
+the scripts', window_base_rows(_w) and E4's base rows against the scripts'
+own, and the experiment scripts' parity runs at a small size.
+
+E4's ``run`` is jitted with ``n_cap`` static from its ``__wrapped__``
+function inside ``pltpu.force_tpu_interpret_mode()``: the committed jit
+cannot trace another n_cap than its default."""
 
 import importlib.util
 import inspect
 import textwrap
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,8 +26,9 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from qoipp_tpu.ops import place_kernel as jpk
-from qoipp_tpu_torch.benchmarks import (expt_place2, expt_place_fixed,
-                                        expt_place_narrow, expt_place_wide)
+from qoipp_tpu_torch.benchmarks import (expt_place, expt_place2,
+                                        expt_place_fixed, expt_place_narrow,
+                                        expt_place_wide)
 from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
 from qoipp_tpu_torch.ops import place_window as PW
 
@@ -242,3 +249,145 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         PW.place_fill2(pb, emits, base, PW.WIN)  # n_cap % (2 WIN) != 0
     with pytest.raises(ValueError, match="multiple of 128"):
         PW.place_variant(pb[:, :200], emits[:, :200], base, PW.WIN)
+
+
+# ---- E4: the grouped summed placement (benchmarks/expt_place.py) ---------
+
+def _e4_jax(pb, emits, base, n_cap, win, g, lr_mode):
+    run = _script("expt_place").make_variant(
+        win, g, jax.lax.Precision.HIGHEST, False, True, lr_mode, False)
+    fn = jax.jit(run.__wrapped__, static_argnames=("n_cap",))
+    with pltpu.force_tpu_interpret_mode():
+        out = fn(jnp.asarray(pb), jnp.asarray(emits), jnp.asarray(base),
+                 n_cap=n_cap)
+    return np.asarray(out).reshape(pb.shape[0], n_cap)
+
+
+def _e4_crafted(rng, n_cap, q):
+    """Sparse sorted rows with runs of 2 and 3 equal pb, gaps of 62 and
+    100 (the fill's reach, and past it: the carry), rows at and past n_cap
+    in image 1; image 0 opens on the duplicate rule's worked example."""
+    inc = rng.choice([0, 1, 1, 2, 3, 5, 17, 62, 100], (2, q))
+    inc[:, 40:42] = 0  # a run of 3 equal pb
+    inc[:, 60] = 0  # a run of 2
+    pb = np.minimum(np.cumsum(inc, axis=1) - inc + 3, n_cap + 7)
+    emits = rng.integers(0, 1 << 32, (2, q), dtype=np.uint64).astype(
+        np.uint32)
+    pb[0, :5] = (0, 5, 5, 5, 100)
+    emits[0, :5] = (7, 0xFFFF0001, 0xFFFF0002, 0x00030003, 9)
+    assert pb[1, -1] >= n_cap
+    return pb.astype(np.int32), emits
+
+
+@pytest.mark.parametrize("lr_mode", ["cnt", "dyn", "smem"])
+@pytest.mark.parametrize("win,g", [(8192, 1), (1024, 2)])
+@pytest.mark.parametrize("inputs", ["generator", "crafted"])
+def test_place_grouped_matches_jax(inputs, win, g, lr_mode):
+    n_cap = 3 * win * g
+    rng = np.random.default_rng(win + g)
+    if inputs == "generator":
+        pb, emits, _ = expt_place.gen_inputs(rng, 2, n_cap,
+                                             128 * (n_cap // 800 + 8))
+    else:
+        pb, emits = _e4_crafted(rng, n_cap, 128 * (n_cap // 1600 + 4))
+    tpb, temits = _port(pb, emits)
+    base = expt_place.base_rows(tpb, n_cap, win, g, lr_mode)
+    want = _e4_jax(pb, emits, base.numpy(), n_cap, win, g, lr_mode)
+    got = PW.place_grouped(tpb, temits, base, n_cap, win=win, g=g,
+                           lr_mode=lr_mode)
+    _same(want, got)
+    if inputs == "crafted":
+        assert want[0, 5] == 0x10006
+
+
+def test_place_grouped_adds_duplicates_where_k2_keeps_the_last():
+    # (sum lo) | (sum hi << 16) mod 2**32: at pixel 5 the three rows give
+    # lo 1 + 2 + 3 = 6 and hi 0xFFFF + 0xFFFF + 3 = 0x20001, so 0x00010006
+    pb = torch.tensor([[0, 5, 5, 5, 100]], dtype=torch.int32)
+    emits = words_to_torch(np.array([[7, 0xFFFF0001, 0xFFFF0002, 0x00030003,
+                                      9]], np.uint32), device="cpu")
+    got = words_to_numpy(PW.summed_place_reference(pb, emits, PW.WIN))
+    assert got[0, 4] == 7 and got[0, 5] == 0x10006 and got[0, 68] == 0x10006
+    assert got[0, 69] == 0  # past the reach of 63: the carry, 0 in step 0
+    assert got[0, 100] == 9
+    last = words_to_numpy(PW.windowed_place_reference(pb, emits, PW.WIN))
+    assert last[0, 5] == 0x00030003  # K2's rule: the run's last row
+
+
+def test_place_grouped_fills_across_windows_but_not_steps():
+    # G=2: a gap over the window edge inside a step fills up to 63 pixels
+    # past the edge; over a step edge it takes the carry
+    win, g = 1024, 2
+    pb = torch.tensor([[1000, 1100, 2040, 2200]], dtype=torch.int32)
+    emits = torch.tensor([[11, 22, 33, 44]], dtype=torch.int32)
+    got = PW.summed_place_reference(pb, emits, 4 * win, win, g)[0]
+    assert got[1024].item() == 11 and got[1063].item() == 11  # same step
+    assert got[1064].item() == 0  # past the reach: the carry into step 0
+    assert got[2047].item() == 33 and got[2048].item() == 33  # step 1: carry
+    assert got[2199].item() == 33 and got[2200].item() == 44
+
+
+def _inline_e4_inputs(b, n_cap, cap):
+    """The input lines of expt_place.main at (b, n_cap, cap), run as they
+    stand but for the sizes."""
+    lines = inspect.getsource(_script("expt_place").main).splitlines()
+    first = next(i for i, ln in enumerate(lines) if "default_rng" in ln)
+    last = next(i for i, ln in enumerate(lines) if "counts[b] = c" in ln)
+    block = textwrap.dedent("\n".join(lines[first : last + 1]))
+    sizes = "B, n_cap, cap = 128, 2088960, 286720"
+    assert sizes in block and (expt_place.B, expt_place.N_CAP,
+                               expt_place.CAP) == (128, 2088960, 286720)
+    scope = {"np": np}
+    exec(block.replace(sizes, f"B, n_cap, cap = {b}, {n_cap}, {cap}"), scope)
+    return scope["pb"], scope["em"], scope["counts"]
+
+
+def test_e4_generator_is_the_script():
+    want = _inline_e4_inputs(3, 6 * PW.WIN, 6144)
+    got = expt_place.gen_inputs(np.random.default_rng(0), 3, 6 * PW.WIN,
+                                6144)
+    for w, g in zip(want, got):
+        assert w.dtype == g.dtype and np.array_equal(w, g)
+
+
+@pytest.mark.parametrize("lr_mode", ["dyn", "smem"])
+def test_e4_base_rows_are_the_script(lr_mode):
+    pb, _, _ = expt_place.gen_inputs(np.random.default_rng(1), 2, 4 * PW.WIN,
+                                     128 * 40)
+    win, g = 1024, 2
+    lastpb = pb[:, 127::128]
+    unit = win if lr_mode == "smem" else win * g
+    bounds = (np.arange(4 * PW.WIN // unit) * unit)[None, None, :]
+    want = np.sum(lastpb[:, :, None] < bounds, axis=1)
+    got = expt_place.base_rows(torch.from_numpy(pb), 4 * PW.WIN, win, g,
+                               lr_mode)
+    assert got.dtype == torch.int32 and np.array_equal(want, got.numpy())
+
+
+def test_expt_place_parity_on_cpu():
+    argv = ["-b", "2", "--cap", "6144", "--n-cap", str(6 * PW.WIN)]
+    rows = expt_place.main(argv + ["--runs", "0"], device="cpu")
+    assert [r["max_abs_err"] for r in rows] == [None, 0]  # timing-only first
+    assert rows[1]["k2_err"] == 0 and all(r["ms"] is None for r in rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        expt_place.main(argv, device="cpu")
+
+
+def test_place_grouped_rejects_what_the_kernel_does_not_take():
+    pb = torch.zeros((1, 256), dtype=torch.int32)
+    emits = torch.zeros_like(pb)
+    base = PW.step_base_rows(pb, PW.WIN, PW.WIN)
+    with pytest.raises(ValueError, match="win"):
+        PW.place_grouped(pb, emits, base, PW.WIN, win=100)
+    with pytest.raises(ValueError, match="n_cap"):
+        PW.place_grouped(pb, emits, base, PW.WIN, g=2)
+    with pytest.raises(ValueError, match="exceeds"):
+        PW.place_grouped(pb, emits, base, 4 * PW.WIN, g=4)
+    with pytest.raises(ValueError, match="lr_mode"):
+        PW.place_grouped(pb, emits, base, PW.WIN, lr_mode="fast")
+    with pytest.raises(ValueError, match="precision"):
+        PW.place_grouped(pb, emits, base, PW.WIN, precision="bf16")
+    with pytest.raises(ValueError, match="base_step shape"):
+        PW.place_grouped(pb, emits, base, PW.WIN, win=1024, lr_mode="smem")
+    with pytest.raises(ValueError, match="dtype"):
+        PW.place_grouped(pb, emits, base.long(), PW.WIN)
