@@ -48,8 +48,16 @@
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
-   inputs; E8 and E9 from the probes' run, beside their torch calls), then
-   times every path (1 cold, 3 warmup, 5 timed runs, CUDA events).
+   inputs; E8 and E9 from the probes' run, beside their torch calls; K1
+   and K5 on the first and on the last 4,096 rows, the last from the
+   kernel's own carry, timed beside the first build's time and their chain
+   bound: the longest chain of dependent operations the function needs on
+   those rows, at the dependent-issue latency and SM clock the card
+   shows in the same run), runs the replay class probe
+   (benchmarks/replay_probe: K1 at 16 x 277,888 rows and K5 at 96 x
+   12,288 on all-NOP, all-SETA, all-ADD and all-IDX rows and the cells'
+   own, in ns a row), then times every path (1 cold, 3 warmup, 5 timed
+   runs, CUDA events).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -78,6 +86,7 @@ from qoipp_tpu_torch.benchmarks import (  # noqa: E402
     expt_place_narrow,
     expt_place_wide,
     profile_r2,
+    replay_probe,
     timed_ms,
 )
 from qoipp_tpu_torch.common import Channels, Desc  # noqa: E402
@@ -105,7 +114,15 @@ W, H = 1920, 1088
 CORPORA = (("rgb", 16, 0, 3), ("rgba", 8, 7, 4))  # label, B, seed, channels
 SPLIT_SIDE = 4096  # the sparse split stream is SPLIT_SIDE x SPLIT_SIDE RGB
 SPLIT_LANES = 96  # SplitDecoder's serving default
-PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs ~1 ms per row
+PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs 0.2-0.4 ms per row
+# K1 and K5 as first built (one thread a lane, 32 lanes a block), ms a call
+# at the shapes phase 5 times, on an H100 80GB HBM3 at 700 W (PERF.md §6)
+FIRST_BUILD_MS = {"replay": 51.143, "replay_summary": 2.113}
+# dependent instructions from one state row's value to the next in the
+# replay chain thread's loop as built (python -m
+# qoipp_tpu_torch.benchmarks.replay_probe --sass FILE; PERF.md): this
+# design's floor, not the function's
+DESIGN_CHAIN_INSTRS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 OPS_PER_S = 67e12  # H100 SXM, published 32-bit rate outside the tensor cores
 KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
@@ -193,7 +210,7 @@ def expect(cond, what):
 
 
 def bound(nbytes, ops):
-    """The least time the card could take: (ms, what bounds it)."""
+    """The least time the card could take: (s, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
 
@@ -496,33 +513,80 @@ def _replay_bytes(c, b, summary):
     return 12 * c * b + 4 * b * (65 * 2 + (65 if summary else 0))
 
 
-def phase5_kernels_at_main_shapes(run, launches):
+def _replay_row(name, meta_t, val_t, carry, launches, card, what):
+    """K1 ("replay") or K5 ("replay_summary") on the rows its path gives it,
+    from ``carry``: held against its plain version on the first
+    PLAIN_REPLAY_ROWS rows, and on the last PLAIN_REPLAY_ROWS from the
+    kernel's own carry after the rows before them (the emits there, the
+    final prev and table), then timed beside the plain version and the
+    first build's time.  The chain bound beside the row's bound: the
+    longest chain of dependent operations the function needs on these rows
+    (replay_probe.chain_depth) at the dependent-issue latency and the SM
+    clock measured just after the timed calls (replay_probe.chain_latency);
+    the share is the kernel's time against the larger of the two."""
+    fn, ref = ((replay_kernel.replay_batch_carry,
+                replay_kernel.replay_batch_carry_reference)
+               if name == "replay" else
+               (replay_kernel.replay_batch_summary,
+                replay_kernel.replay_batch_summary_reference))
+    c, b = meta_t.shape
+    n = min(PLAIN_REPLAY_ROWS, c)
+    pm, pv = meta_t[:n], val_t[:n]
+    err = max(selfcheck.max_abs_err(g, w) for g, w in
+              zip(fn(pm, pv, *carry), ref(pm, pv, *carry)))
+    expect(err == 0, f"{name} disagrees with its plain version on the "
+           f"first {n} rows")
+    full = fn(meta_t, val_t, *carry)
+    cut = c - n
+    mid = fn(meta_t[:cut], val_t[:cut], *carry)[1:3] if cut else carry
+    want = ref(meta_t[cut:], val_t[cut:], *mid)
+    tail_err = max(selfcheck.max_abs_err(full[0][cut:], want[0]),
+                   selfcheck.max_abs_err(full[1], want[1]),
+                   selfcheck.max_abs_err(full[2], want[2]))
+    expect(tail_err == 0, f"{name} disagrees with its plain version on the "
+           f"last {n} rows")
+    depth = replay_probe.chain_depth(meta_t, full[0])
+    del full, want
+    ms = timed_ms(lambda: fn(meta_t, val_t, *carry))
+    lat, mhz = replay_probe.chain_latency(meta_t.device)
+    prefix_ms = timed_ms(lambda: fn(pm, pv, *carry))
+    plain_ms = timed_ms(lambda: ref(pm, pv, *carry), warmup=1, runs=1)
+    n_state = replay_probe.state_rows(meta_t)
+    chain_ms = depth * lat / (mhz * 1e3)
+    floor_ms = n_state * DESIGN_CHAIN_INSTRS * lat / (mhz * 1e3)
+    nbytes = _replay_bytes(c, b, name == "replay_summary")
+    ops = OPS_PER_ELEMENT[name] * c * b
+    row = _kernel_row(
+        name, launches[name], max(err, tail_err), ms, plain_ms, nbytes, ops,
+        rows=c, lanes=b, plain_rows=n, ms_on_plain_rows=prefix_ms,
+        ns_per_row=ms / c * 1e6, state_rows=n_state,
+        ns_per_state_row=ms / n_state * 1e6)
+    share = max(row["bound_ms"], chain_ms) / ms
+    log(f"phase 5: {name} ({what}, C={c}, B={b}): {ms:.3f} ms, "
+        f"{ms / c * 1e6:.2f} ns/row, {ms / n_state * 1e6:.2f} ns per state "
+        f"row ({n_state} on the longest lane); first build (one thread a "
+        f"lane) {FIRST_BUILD_MS[name]} ms; chain bound {chain_ms:.5f} ms "
+        f"({depth} dependent operations on the longest chain; {lat:.3f} "
+        f"cycles each at {mhz:.0f} MHz, measured after the timed calls), "
+        f"bytes bound {row['bound_ms']:.5f} ms, share {share:.3f}; this "
+        f"design's chain floor {floor_ms:.4f} ms ({DESIGN_CHAIN_INSTRS} "
+        f"dependent "
+        f"instructions a state row); plain on {n} rows {plain_ms:.1f} ms "
+        f"(kernel on those rows {prefix_ms:.3f} ms); head and tail windows "
+        f"equal the plain version, on {card}")
+    return row
+
+
+def phase5_kernels_at_main_shapes(run, launches, card):
     """Each kernel of the batch path against its plain version on the
     inputs that path gives it (RGB corpus), and both timed."""
     pipe = run["pipe"]
-    rows = []
     meta_t, val_t, pix_before = pipe.replay_inputs(run["streams"],
                                                    run["sizes"])
-    c, b = meta_t.shape
-    prev0, seen0 = replay_kernel.initial_state(b, meta_t.device)
-    # the plain replay is a Python loop: hold it to a prefix of the rows
-    pm, pv = meta_t[:PLAIN_REPLAY_ROWS], val_t[:PLAIN_REPLAY_ROWS]
-    err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
-        replay_kernel.replay_batch_carry(pm, pv, prev0, seen0),
-        replay_kernel.replay_batch_carry_reference(pm, pv, prev0, seen0)))
-    expect(err == 0, "replay disagrees with its plain version")
-    ms = timed_ms(lambda: replay_kernel.replay_batch(meta_t, val_t))
-    prefix_ms = timed_ms(lambda: replay_kernel.replay_batch(pm, pv))
-    plain_ms = timed_ms(lambda: replay_kernel.replay_batch_carry_reference(
-        pm, pv, prev0, seen0), warmup=1, runs=1)
-    log(f"phase 5: replay (C={c}, B={b}): {ms:.3f} ms, "
-        f"{ms / c * 1e6:.1f} ns/row; plain on {pm.shape[0]} rows "
-        f"{plain_ms:.1f} ms = {plain_ms / pm.shape[0] * 1e3:.1f} us/row "
-        f"(kernel on those rows {prefix_ms:.3f} ms)")
-    rows.append(_kernel_row(
-        "replay", launches["replay"], err, ms, plain_ms,
-        _replay_bytes(c, b, False), OPS_PER_ELEMENT["replay"] * c * b,
-        rows=c, lanes=b, plain_rows=pm.shape[0], ms_on_plain_rows=prefix_ms))
+    rows = [_replay_row(
+        "replay", meta_t, val_t,
+        replay_kernel.initial_state(meta_t.shape[1], meta_t.device),
+        launches, card, "batch RGB")]
 
     emits = replay_kernel.replay_batch(meta_t, val_t).T.contiguous()
     rows.append(_place_fill_row(pix_before, emits, pipe.n_cap, launches,
@@ -583,7 +647,7 @@ def _place_fill_row(pix_before, emits, n_cap, launches, where):
                        2 * b * n_cap * max(q, 2).bit_length())
 
 
-def phase5_split_kernels(run, launches):
+def phase5_split_kernels(run, launches, card):
     """K5 on the sparse split stream's rows from the round-0 guess, K2 on
     its lanes (timed, not reported: the batch path's K2 row stands)."""
     dec = run["dec"]
@@ -591,29 +655,36 @@ def phase5_split_kernels(run, launches):
      qc) = dec.stage_plan(run["plan"])
     meta_t, val_t, pix_before = split.lane_rows(regions, chunks_sizes,
                                                 px_budgets, qb, n_cap, qc)
-    c, b = meta_t.shape
-    in_p, in_s = split.initial_guess(b, meta_t.device)
-    pm, pv = meta_t[:PLAIN_REPLAY_ROWS], val_t[:PLAIN_REPLAY_ROWS]
-    err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
-        replay_kernel.replay_batch_summary(pm, pv, in_p, in_s),
-        replay_kernel.replay_batch_summary_reference(pm, pv, in_p, in_s)))
-    expect(err == 0, "replay_summary disagrees with its plain version")
-    ms = timed_ms(lambda: replay_kernel.replay_batch_summary(
-        meta_t, val_t, in_p, in_s))
-    prefix_ms = timed_ms(lambda: replay_kernel.replay_batch_summary(
-        pm, pv, in_p, in_s))
-    plain_ms = timed_ms(lambda: replay_kernel.replay_batch_summary_reference(
-        pm, pv, in_p, in_s), warmup=1, runs=1)
-    log(f"phase 5: replay_summary (C={c}, B={b}, one fixpoint round): "
-        f"{ms:.3f} ms, {ms / c * 1e6:.1f} ns/row; plain on {pm.shape[0]} "
-        f"rows {plain_ms:.1f} ms (kernel on those rows {prefix_ms:.3f} ms)")
-    emits = replay_kernel.replay_batch_summary(meta_t, val_t, in_p,
-                                               in_s)[0].T.contiguous()
+    carry = split.initial_guess(meta_t.shape[1], meta_t.device)
+    row = _replay_row("replay_summary", meta_t, val_t, carry, launches, card,
+                      "split sparse, one fixpoint round")
+    emits = replay_kernel.replay_batch_summary(meta_t, val_t,
+                                               *carry)[0].T.contiguous()
     _place_fill_row(pix_before, emits, n_cap, launches, "split")
-    return _kernel_row(
-        "replay_summary", launches["replay_summary"], err, ms, plain_ms,
-        _replay_bytes(c, b, True), OPS_PER_ELEMENT["replay_summary"] * c * b,
-        rows=c, lanes=b, plain_rows=pm.shape[0], ms_on_plain_rows=prefix_ms)
+    return row
+
+
+def phase5_replay_probe(run, sparse, rows, card):
+    """The class probe (benchmarks/replay_probe): K1 at the batch RGB
+    cell's shape and K5 at one split sparse round's, on all-NOP, all-SETA,
+    all-ADD and all-IDX rows and the cells' own rows, in ns a row; kept in
+    the two kernels' rows."""
+    dev = run["streams"].device
+    k1_meta, k1_val, _ = run["pipe"].replay_inputs(run["streams"],
+                                                   run["sizes"])
+    (regions, _, chunks_sizes, px_budgets, _, _, _, qb, n_cap,
+     qc) = sparse["dec"].stage_plan(sparse["plan"])
+    k5_meta, k5_val, _ = split.lane_rows(regions, chunks_sizes, px_budgets,
+                                         qb, n_cap, qc)
+    log(f"phase 5: the replay class probe on {card}")
+    probe = replay_probe.run_probe(
+        k1_meta, k1_val, k5_meta, k5_val,
+        split.initial_guess(k5_meta.shape[1], dev), dev, runs=5)
+    for row in rows:
+        if row["name"] in ("replay", "replay_summary"):
+            row["class_probe"] = [
+                {k: p[k] for k in ("rows", "state_rows", "ms", "ns_per_row")}
+                for p in probe if p["kernel"] == row["name"]]
 
 
 def phase5_logfill(run, launches, dev):
@@ -893,8 +964,9 @@ def main():
           lambda: phase3_probes(runs[0], results, dev),
           ("grid_step", "onehot_place"), launches)
     log(f"phase 4: launches over all paths: {launches}")
-    rows = phase5_kernels_at_main_shapes(runs[0], launches)
-    rows.append(phase5_split_kernels(sparse, launches))
+    rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
+    rows.append(phase5_split_kernels(sparse, launches, card))
+    phase5_replay_probe(runs[0], sparse, rows, card)
     rows.append(phase5_logfill(oneshot[0], launches, dev))
     rows.append(phase5_fields(sparse, launches, dev))
     for name in EXPERIMENTS:

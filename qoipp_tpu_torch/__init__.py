@@ -15,10 +15,17 @@ uint32 numpy arrays the JAX package uses.
 
 from .common import (
     END_MARKER,
+    END_MARKER_SIZE,
     HEADER_SIZE,
+    MAGIC,
     Channels,
     Colorspace,
     Desc,
+    Error,
+    Result,
+    count_bytes,
+    is_valid,
+    read_header,
     worst_size,
     write_header,
 )
@@ -27,11 +34,19 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # the pipeline pulls in torch; load it on first use
+    # the device codecs pull in the kernels' modules; load them on first use
     if name == "BatchPipeline":
         from .models.pipeline import BatchPipeline
 
         return BatchPipeline
+    if name == "DeviceStreamDecoder":
+        from .ops.device_stream import DeviceStreamDecoder
+
+        return DeviceStreamDecoder
+    if name == "DeviceStreamEncoder":
+        from .ops.device_stream import DeviceStreamEncoder
+
+        return DeviceStreamEncoder
     raise AttributeError(name)
 
 
@@ -40,8 +55,17 @@ __all__ = [
     "Channels",
     "Colorspace",
     "Desc",
+    "DeviceStreamDecoder",
+    "DeviceStreamEncoder",
     "END_MARKER",
+    "END_MARKER_SIZE",
+    "Error",
     "HEADER_SIZE",
+    "MAGIC",
+    "Result",
+    "count_bytes",
+    "is_valid",
+    "read_header",
     "worst_size",
     "write_header",
 ]

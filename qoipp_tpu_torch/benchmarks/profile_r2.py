@@ -78,7 +78,7 @@ def stage_profile(pipe, streams, sizes, runs: int) -> dict:
 
     def fields_of():
         meta, val = dec_ops.fields_dense_batch(regions, info["real"])
-        return meta.T.contiguous(), val.T.contiguous()
+        return meta.T, val.T  # lane-major, as replay_inputs gives them
 
     meta_t, val_t = fields_of()
     emits = rk.replay_batch(meta_t, val_t).T.contiguous()

@@ -8,8 +8,10 @@ the same 14-byte header on both sides.  Pure Python and numpy.
 from __future__ import annotations
 
 import enum
+import os
 import struct
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Generic, Optional, TypeVar, Union
 
 import numpy as np
@@ -148,9 +150,25 @@ def write_header(desc: Desc) -> bytes:
             + bytes([int(desc.channels), int(desc.colorspace)]))
 
 
-def read_header(data: Union[bytes, bytearray, memoryview, np.ndarray]
-                ) -> Result[Desc]:
-    """Parse and validate the QOI header at the start of ``data``."""
+def read_header(data: Union[bytes, bytearray, memoryview, np.ndarray, str,
+                            os.PathLike]) -> Result[Desc]:
+    """Parse and validate the QOI header at the start of ``data``, or of
+    the file at a ``str`` or ``os.PathLike`` path: FILE_NOT_EXISTS,
+    NOT_REGULAR_FILE, or IO_ERROR where the file cannot be read or holds
+    fewer than 14 bytes."""
+    if isinstance(data, (str, os.PathLike)):
+        path = Path(data)
+        if not path.exists():
+            return Result(error=Error.FILE_NOT_EXISTS)
+        if not path.is_file():
+            return Result(error=Error.NOT_REGULAR_FILE)
+        try:
+            with open(path, "rb") as f:
+                data = f.read(HEADER_SIZE)
+        except OSError:
+            return Result(error=Error.IO_ERROR)
+        if len(data) < HEADER_SIZE:
+            return Result(error=Error.IO_ERROR)
     head = data[:HEADER_SIZE]
     data = head.tobytes() if isinstance(head, np.ndarray) else bytes(head)
     if len(data) == 0:

@@ -16,6 +16,14 @@
 // depend on the order the atomics land in; targets outside the bins are
 // dropped, as the one-hot product drops them.  Bound: bytes, 8 per target
 // read and 4 per bin written.
+//
+// dep_chain is no TPU kernel's counterpart: it measures the card for the
+// replay chain's bound (benchmarks/replay_probe).  One thread runs rounds
+// x kChainUnroll steps of x = (x + a) ^ b, two dependent 32-bit integer
+// instructions a step (an add and a logic operation) and nothing else on
+// the chain, and reads the SM's cycle counter and the global nanosecond
+// timer around the loop: cycles over instructions is the dependent-issue
+// latency, cycles over nanoseconds the SM clock while it ran.
 #include "qoipp_kernels.cuh"
 
 namespace {
@@ -23,6 +31,7 @@ namespace {
 constexpr int kStepWords = 1024;  // one (8, 128) block
 constexpr int kStepThreads = kStepWords / 4;
 constexpr int kPlaceThreads = 512;
+constexpr int kChainUnroll = 64;
 
 __global__ void __launch_bounds__(kStepThreads)
 grid_step_kernel(const uint4* __restrict__ x, uint4* __restrict__ y) {
@@ -55,6 +64,31 @@ onehot_place_kernel(const int32_t* __restrict__ t, const float* __restrict__ v,
     o[i] = static_cast<float>(bins[i]);
 }
 
+// out[0] cycles, out[1] ns, out[2] the final x.  Each timer read takes x
+// as an operand, so the loop can move across neither; adding threadIdx.x
+// (0) keeps x in a thread's registers, where the replay chain runs, and
+// off the uniform datapath, where a value the whole warp shares would go.
+__global__ void dep_chain_kernel(long long* out, uint32_t x, uint32_t a,
+                                 uint32_t b, long long rounds) {
+  unsigned long long g0, g1, c0, c1;
+  x += threadIdx.x;
+  asm volatile(
+      "mov.u64 %0, %%globaltimer;\n\tmov.u64 %1, %%clock64;\n\t"
+      "mov.b32 %2, %2;"
+      : "=l"(g0), "=l"(c0), "+r"(x));
+  for (long long i = 0; i < rounds; ++i) {
+#pragma unroll
+    for (int k = 0; k < kChainUnroll; ++k) x = (x + a) ^ b;
+  }
+  asm volatile(
+      "mov.b32 %2, %2;\n\tmov.u64 %1, %%clock64;\n\t"
+      "mov.u64 %0, %%globaltimer;"
+      : "=l"(g1), "=l"(c1), "+r"(x));
+  out[0] = static_cast<long long>(c1 - c0);
+  out[1] = static_cast<long long>(g1 - g0);
+  out[2] = x;
+}
+
 }  // namespace
 
 // x, y (steps, 8, 128) 32-bit words: y = x + 1 (wrapping).
@@ -80,5 +114,15 @@ QK_API int qk_onehot_place(const void* t, const void* v, void* out, int nblk,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(t), static_cast<const float*>(v),
       static_cast<float*>(out), K, nbins);
+  return qk::launch_status();
+}
+
+// out (3,) int64: the cycles and nanoseconds of rounds x 64 steps of
+// x = (x + a) ^ b on one thread, and the final x.
+QK_API int qk_dep_chain(void* out, uint32_t x, uint32_t a, uint32_t b,
+                        long long rounds, void* stream) {
+  if (rounds <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  dep_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out), x, a, b, rounds);
   return qk::launch_status();
 }

@@ -22,14 +22,6 @@ __device__ __forceinline__ uint32_t hash6(uint32_t v) {
           ((v >> 16) & 0xFFu) * 7u + (v >> 24) * 11u) & 63u;
 }
 
-// per-byte wraparound addition of two packed pixels
-__device__ __forceinline__ uint32_t swar_add(uint32_t x, uint32_t y) {
-  const uint32_t lo = ((x & 0x00FF00FFu) + (y & 0x00FF00FFu)) & 0x00FF00FFu;
-  const uint32_t hi =
-      (((x >> 8) & 0x00FF00FFu) + ((y >> 8) & 0x00FF00FFu)) & 0x00FF00FFu;
-  return lo | (hi << 8);
-}
-
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace qk

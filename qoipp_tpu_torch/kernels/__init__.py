@@ -39,14 +39,16 @@ LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
             "replay_summary": 0, "logfill": 0, "fields": 0,
             "place_wide": 0, "place_fill2": 0, "place_fill_narrow": 0,
             "place_variant": 0, "place_grouped": 0, "emit_window": 0,
-            "grid_step": 0, "onehot_place": 0}
+            "grid_step": 0, "onehot_place": 0, "dep_chain": 0}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_uint32)
 _SIGNATURES = {
-    # meta, val, prev_in, seen_in, emits, prev_out, seen_out, C, B, stream
-    "qk_replay": [_P] * 7 + [_L, _I, _P],
-    # qk_replay's pointers, pupd, swr, C, B, stream
-    "qk_replay_summary": [_P] * 9 + [_L, _I, _P],
+    # meta, val, prev_in, seen_in, emits, prev_out, seen_out, C, B, the
+    # rows' row and lane strides, the emits', stream
+    "qk_replay": [_P] * 7 + [_L, _I] + [_L] * 4 + [_P],
+    # qk_replay's pointers, pupd, swr, C, B, strides, stream
+    "qk_replay_summary": [_P] * 9 + [_L, _I] + [_L] * 4 + [_P],
     # pb, emits, out, B, Q, n_cap, stream
     "qk_place_fill": [_P, _P, _P, _I, _L, _L, _P],
     # keep, gidx, nplanes, in0..in3, out0..out3, B, N, cap, stream
@@ -72,6 +74,8 @@ _SIGNATURES = {
     "qk_grid_step": [_P, _P, _L, _P],
     # t, v, out, nblk, K, nbins, stream
     "qk_onehot_place": [_P] * 3 + [_I, _L, _I, _P],
+    # out, x, a, b, rounds, stream
+    "qk_dep_chain": [_P, _U, _U, _U, _L, _P],
 }
 
 _lock = threading.Lock()
@@ -177,14 +181,14 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
-          device: torch.device) -> None:
-    """Raise ValueError unless t is a contiguous ``dtype`` tensor of
-    ``shape`` on ``device``."""
+          device: torch.device, contiguous: bool = True) -> None:
+    """Raise ValueError unless t is a ``dtype`` tensor of ``shape`` on
+    ``device``, and contiguous unless the kernel takes its strides."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")

@@ -7,14 +7,18 @@ bit-exact.  The cases:
 
   replay:     the crafted INDEX-53 first chunk, random rows of every class
               with rst bits, a random non-initial carry, a C that is not a
-              multiple of the kernel's row group;
+              multiple of the kernel's row group; and C = 3 tiles + 5 rows
+              (chunk-major and lane-major): random rows, palette rows
+              whose IDX rows read the slots the two rows before wrote, a
+              reset mid-tile, ADD-only and state-free lanes;
   place_fill: lanes whose offsets run past n_cap (rows with pb >= n_cap),
               lanes that end inside it, a lane whose first offset is > 0;
   compact:    empty, full and random keep masks, one to four planes;
   emit:       encoder-shaped rows, a lane of 6-byte rows across every
               8192-byte window edge and past out_cap;
   replay_summary: resets mid-lane, IDX-only lanes, lanes that write
-              nothing (NOP/RUN only), random rows and a random carry;
+              nothing (NOP/RUN only), random rows and a random carry; and
+              replay's case of C = 3 tiles + 5 rows;
   logfill:    gaps of exactly 63 and 64, gaps across the kernel's tile
               boundary, a flag at column 0, a row with no flag, a row
               length that is not a multiple of the tile, and random
@@ -58,6 +62,7 @@ from ..ops import (compact_kernel, emit_kernel, emit_window, fields_kernel,
                    place_kernel, place_window, probes, replay_kernel)
 from ..ops.bitops import hash6
 
+REPLAY_TILE = 1024  # rows a tile of csrc/replay.cu (kTile)
 # largest |kernel - plain| each kernel may show (0 where not listed): E9's
 # float32 sums, for the order in which duplicates add
 TOLERANCE = {"onehot_place": 1e-6}
@@ -108,7 +113,41 @@ def _replay(device) -> int:
                                     _words(rng, (1, b)), _words(rng, (64, b)))]
     got = replay_kernel.replay_batch_carry(*args)
     want = replay_kernel.replay_batch_carry_reference(*args)
-    return max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+    return max(err, _replay_tiles(replay_kernel.replay_batch_carry,
+                                  replay_kernel.replay_batch_carry_reference,
+                                  rng, device))
+
+
+def _replay_tiles(fn, ref, rng, device) -> int:
+    """C = 3 tiles + 5 rows of the kernel, chunk-major and lane-major:
+    random rows; a lane of SETA/SETC/ADD/IDX rows over a four-pixel
+    palette whose IDX rows read the palette's slots, so that an IDX row
+    often reads the slot one of the two rows before it wrote (the
+    kernel's forwarded writes); a NOP lane with one reset mid-tile; an
+    ADD-only lane; a lane of classes 0 and 5-7 only."""
+    c, b = 3 * REPLAY_TILE + 5, 5
+    cls = rng.integers(0, 8, (c, b))
+    arg = rng.integers(0, 64, (c, b))
+    rst = (rng.random((c, b)) < 0.001).astype(np.int64)
+    val = _words(rng, (c, b))
+    pal = _words(rng, 4)
+    slots = hash6(_t(pal, "cpu")).numpy()
+    cls[:, 1] = rng.choice([1, 2, 3, 4, 4, 4], c)
+    arg[:, 1] = rng.choice(np.append(slots, 53), c)
+    val[:, 1] = np.where(cls[:, 1] == 3, 0, pal[rng.integers(0, 4, c)])
+    cls[:, 2] = 0
+    cls[:, 3] = 3
+    cls[:, 4] = rng.choice([0, 5, 6, 7], c)
+    rst[:, 2:] = 0
+    rst[REPLAY_TILE + 1000, 2] = 1
+    meta = (cls | (arg << 3) | (rst << 9)).astype(np.uint32)
+    args = [_t(x, device) for x in (meta, val, _words(rng, (1, b)),
+                                    _words(rng, (64, b)))]
+    want = ref(*args)
+    lane_major = [x.T.contiguous().T for x in args[:2]] + args[2:]
+    return max(max_abs_err(g, w) for rows in (args, lane_major)
+               for g, w in zip(fn(*rows), want))
 
 
 def _place_fill(device) -> int:
@@ -181,7 +220,10 @@ def _replay_summary(device) -> int:
                                     _words(rng, (1, b)), _words(rng, (64, b)))]
     got = replay_kernel.replay_batch_summary(*args)
     want = replay_kernel.replay_batch_summary_reference(*args)
-    return max(max_abs_err(g, w) for g, w in zip(got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    return max(err, _replay_tiles(
+        replay_kernel.replay_batch_summary,
+        replay_kernel.replay_batch_summary_reference, rng, device))
 
 
 def _logfill(device) -> int:

@@ -82,8 +82,9 @@ class BatchPipeline:
 
     def replay_inputs(self, streams, sizes):
         """The stages before the kernels: (B, l_cap) uint8 streams + (B,)
-        sizes -> (meta, val) chunk-major (qb, B) int32 rows for K1 and the
-        (B, qb) int32 pixel offsets for K2."""
+        sizes -> (meta, val) (qb, B) int32 rows for K1, lane-major (views
+        of the (B, qb) planes), and the (B, qb) int32 pixel offsets for
+        K2."""
         streams = self._to_device(streams, torch.uint8)
         sizes = self._to_device(sizes, torch.int32)
         regions = streams[:, 14:]
@@ -95,13 +96,15 @@ class BatchPipeline:
         info = boundary.analyze_region_batch(
             regions[:, : self.qb].contiguous(), sizes - 22, self.n_px)
         meta, val = dec_ops.fields_dense_batch(regions, info["real"])
-        return meta.T.contiguous(), val.T.contiguous(), info["pix_before"]
+        return meta.T, val.T, info["pix_before"]
 
     def decode_packed(self, streams, sizes):
         """(B, l_cap) u8 streams + (B,) sizes -> (B, n_cap) int32 packed
         pixels on the pipeline's device ([:, :n_px] are valid)."""
         meta_t, val_t, pix_before = self.replay_inputs(streams, sizes)
-        emits = rk.replay_batch(meta_t, val_t).T.contiguous()  # (B, qb)
+        # (B, qb): the emits come in the rows' lane-major layout, so this
+        # transpose is a view and copies nothing
+        emits = rk.replay_batch(meta_t, val_t).T.contiguous()
         return place_kernel.place_fill(pix_before, emits, self.n_cap)
 
     def decode(self, streams, sizes, target: Optional[Channels] = None):

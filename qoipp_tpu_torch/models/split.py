@@ -116,8 +116,9 @@ def propagate(heads, out_p, out_s, pupd, swr, base=None):
 def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
               qc: int = 0):
     """The stages before the fixpoint: (L, qb + 8) uint8 segment bytes ->
-    chunk-major (meta, val) rows (width, L) int32 for K5 and (L, width)
-    int32 pixel offsets for K2, width = qc or qb."""
+    (meta, val) rows (width, L) int32 for K5, lane-major (views of the
+    (L, width) planes), and (L, width) int32 pixel offsets for K2, width =
+    qc or qb."""
     info = boundary.analyze_region_batch(regions[:, :qb], chunks_sizes, 0)
     real = info["real"]
     # clamp at the walker's per-segment pixel span, which stops RUN
@@ -127,7 +128,7 @@ def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
     if qc:
         meta, val, pix_before = _compact_chunks(meta, val, pix_before, real,
                                                 n_cap, qc)
-    return meta.T.contiguous(), val.T.contiguous(), pix_before.contiguous()
+    return meta.T, val.T, pix_before.contiguous()
 
 
 def seam_fixpoint(meta_t, val_t, heads, max_chain: int, base=None):
@@ -200,7 +201,7 @@ def _decode_window_lanes(regions, seg_lens, prev0, seen_col0, max_chain: int,
                         device=regions.device)
     heads[0] = True
     emits, rounds, fin = seam_fixpoint(
-        meta.T.contiguous(), val.T.contiguous(), heads, max_chain,
+        meta.T, val.T, heads, max_chain,
         torch.cat([prev0.reshape(1), seen_col0.reshape(64)]))
     packed = place_kernel.place_fill(pix_before.contiguous(),
                                      emits.T.contiguous(), n_cap)
@@ -249,7 +250,11 @@ class SplitDecoder:
         """Plan, upload and decode.  Returns ((L, n_cap) int32 pixels on
         the device, where [per stream: list of (lane, px_start, px_end)],
         descs, rounds)."""
-        return self.dispatch_staged(self.stage_plan(self.plan_and_pack(blobs)))
+        return self.dispatch_staged(self.stage_to_device(blobs))
+
+    def stage_to_device(self, blobs: Sequence):
+        """Plan and upload only; dispatch_staged decodes what it returns."""
+        return self.stage_plan(self.plan_and_pack(blobs))
 
     def stage_plan(self, plan):
         """Upload a plan_and_pack host plan to the decoder's device."""

@@ -18,6 +18,11 @@ product drops them.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels and
 raise on any failure.
+
+``dep_chain`` is no TPU kernel's counterpart: it measures the card (the
+latency of one dependent integer instruction and the SM clock) for the
+replay chain's bound.  It needs a CUDA device; ``dep_chain_reference``
+gives the x its loop must end with.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ from .place_window import _require
 STEP_SHAPE = (8, 128)  # one TPU grid step's block, one CUDA block here
 S = 17  # the probe's stripes of 128 bins
 MAX_S = 227  # 227 * 128 float64 bins fill a block's 227 KB of shared memory
+CHAIN_UNROLL = 64  # dep_chain's steps a round
+CHAIN_STEP_OPS = 2  # its dependent instructions a step: an add, a xor
 
 
 def grid_step_reference(x):
@@ -80,3 +87,33 @@ def onehot_place(t, v, s: int = S):
         kernels.launch("onehot_place", "qk_onehot_place", dev, t.data_ptr(),
                        v.data_ptr(), out.data_ptr(), nblk, k, s * 128)
     return out
+
+
+# dep_chain's x, a, b: arguments, not constants in the kernel, so that
+# the compiler cannot fold the chain
+CHAIN_X, CHAIN_A, CHAIN_B = 1, 0x9E3779B9, 0x7F4A7C15
+
+
+def dep_chain_reference(rounds: int) -> int:
+    """The x that ``dep_chain`` ends with: rounds x 64 steps of
+    x = (x + a) ^ b on 32-bit words."""
+    x, a, b = CHAIN_X, CHAIN_A, CHAIN_B
+    for _ in range(rounds * CHAIN_UNROLL):
+        x = ((x + a) & 0xFFFFFFFF) ^ b
+    return x
+
+
+def dep_chain(device, rounds: int) -> tuple:
+    """One thread's chain of rounds x 64 steps of x = (x + a) ^ b on
+    ``device``: (SM cycles, nanoseconds, final x).  Cycles over rounds x 64
+    x CHAIN_STEP_OPS is the latency of a dependent integer instruction;
+    cycles over nanoseconds the SM clock while the loop ran."""
+    dev = torch.device(device)
+    _require(dev.type == "cuda", "dep_chain measures the card: it needs a "
+             f"CUDA device, got {dev}")
+    _require(rounds >= 1, f"rounds must be at least 1, got {rounds}")
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    kernels.launch("dep_chain", "qk_dep_chain", dev, out.data_ptr(),
+                   CHAIN_X, CHAIN_A, CHAIN_B, rounds)
+    cycles, ns, xo = out.tolist()
+    return cycles, ns, xo & 0xFFFFFFFF

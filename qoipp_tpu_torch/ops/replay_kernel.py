@@ -3,7 +3,10 @@ csrc/replay.cu and csrc/logfill.cu).
 
 Per lane (image), a strict in-order walk over C chunk rows carrying the
 previous pixel and the 64-entry running index; see csrc/replay.cu for the
-transition rules.  Chunk rows are chunk-major (C, B) int32:
+transition rules.  Chunk rows are (C, B) int32, chunk-major (contiguous)
+or lane-major (the transpose of a contiguous (B, C) plane, as the decode
+passes make them), or a slice of either; the kernels read them at their
+strides:
 
   meta = cls | arg << 3 | rst << 9   cls: 0 NOP, 1 SETA, 2 SETC, 3 ADD,
                                           4 IDX, 5 RUN; rst re-enters the
@@ -102,37 +105,64 @@ def _replay_reference(meta, val, prev_in, seen_in, summary: bool):
 
 def replay_batch_carry_reference(meta, val, prev_in, seen_in):
     """Plain version of K1: a Python loop over the C rows, vectorised over
-    the B lanes.  Same arguments and results as replay_batch_carry."""
-    return _replay_reference(meta, val, prev_in, seen_in, summary=False)
+    the B lanes.  Same arguments and results as replay_batch_carry (its
+    emits chunk-major whatever the rows' layout)."""
+    return _replay_reference(meta.contiguous(), val.contiguous(), prev_in,
+                             seen_in, summary=False)
 
 
 def replay_batch_summary_reference(meta, val, prev_in, seen_in):
     """Plain version of K5: K1's row loop plus the transfer summaries.
-    Same arguments and results as replay_batch_summary."""
-    return _replay_reference(meta, val, prev_in, seen_in, summary=True)
+    Same arguments and results as replay_batch_summary (its emits
+    chunk-major whatever the rows' layout)."""
+    return _replay_reference(meta.contiguous(), val.contiguous(), prev_in,
+                             seen_in, summary=True)
 
 
 def _check_replay_args(meta, val, prev_in, seen_in):
+    """Check the rows and the carry; returns (C, B, device, the rows'
+    (row, lane) element strides).  meta and val are (C, B) int32 views
+    with equal strides, in any layout: chunk-major (contiguous), lane-major
+    (the transpose of a contiguous (B, C) plane), or a slice of either."""
     c, b = meta.shape
     dev = meta.device
-    kernels.check(meta, "meta", torch.int32, (c, b), dev)
-    kernels.check(val, "val", torch.int32, (c, b), dev)
+    for t, name in ((meta, "meta"), (val, "val")):
+        kernels.check(t, name, torch.int32, (c, b), dev, contiguous=False)
+    if meta.stride() != val.stride():
+        raise ValueError(f"meta and val strides differ: {meta.stride()} vs "
+                         f"{val.stride()}")
     kernels.check(prev_in, "prev_in", torch.int32, (1, b), dev)
     kernels.check(seen_in, "seen_in", torch.int32, (64, b), dev)
-    return c, b, dev
+    return c, b, dev, meta.stride()
+
+
+def _emits_like(meta):
+    """Uninitialised (C, B) int32 emits, lane-major where meta's rows lie
+    closer than its lanes (the kernel then stores them coalesced), else
+    chunk-major.  Returns them and their strides."""
+    c, b = meta.shape
+    rs, ls = meta.stride()
+    if c > 1 and b > 1 and rs < ls:
+        out = torch.empty((b, c), dtype=torch.int32, device=meta.device).T
+    else:
+        out = torch.empty((c, b), dtype=torch.int32, device=meta.device)
+    return out, out.stride()
 
 
 def replay_batch_carry(meta, val, prev_in, seen_in):
     """Carried-state replay of a window of chunk rows.
 
-    meta/val: (C, B) int32; prev_in (1, B) and seen_in (64, B) int32.
-    Returns (emits (C, B), prev_out (1, B), seen_out (64, B)), int32.
+    meta/val: (C, B) int32 views with equal strides: chunk-major, lane-major
+    (the transpose of a contiguous (B, C) plane) or a slice of either;
+    prev_in (1, B) and seen_in (64, B) int32.  Returns (emits (C, B), from
+    the kernel lane-major for lane-major rows, else chunk-major; prev_out
+    (1, B), seen_out (64, B)), int32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if meta.device.type == "cpu":
         return replay_batch_carry_reference(meta, val, prev_in, seen_in)
-    c, b, dev = _check_replay_args(meta, val, prev_in, seen_in)
-    emits = torch.empty_like(meta)
+    c, b, dev, strides = _check_replay_args(meta, val, prev_in, seen_in)
+    emits, emit_strides = _emits_like(meta)
     prev_out = torch.empty_like(prev_in)
     seen_out = torch.empty_like(seen_in)
     if b:
@@ -140,7 +170,7 @@ def replay_batch_carry(meta, val, prev_in, seen_in):
             "replay", "qk_replay", dev,
             meta.data_ptr(), val.data_ptr(), prev_in.data_ptr(),
             seen_in.data_ptr(), emits.data_ptr(), prev_out.data_ptr(),
-            seen_out.data_ptr(), c, b)
+            seen_out.data_ptr(), c, b, *strides, *emit_strides)
     return emits, prev_out, seen_out
 
 
@@ -156,9 +186,10 @@ def replay_batch_summary(meta, val, prev_in, seen_in):
     """K5: carried-state replay that also returns each lane's transfer
     summary, the seam algebra of split-replay (models/split.py).
 
-    meta/val: (C, B) int32; prev_in (1, B) and seen_in (64, B) int32.
-    Returns (emits (C, B), prev_out (1, B), seen_out (64, B), pupd (1, B),
-    swr (64, B)), int32: pupd is 1 where the lane overwrote prev, swr 1
+    meta/val: (C, B) int32 views as K1 takes them; prev_in (1, B) and
+    seen_in (64, B) int32.  Returns (emits (C, B) laid out as K1's,
+    prev_out (1, B), seen_out (64, B), pupd (1, B), swr (64, B)), int32:
+    pupd is 1 where the lane overwrote prev, swr 1
     where it overwrote a table slot (a reset overwrites all of them).  A
     lane's out-state component equals its in-state component exactly where
     the summary bit is 0.
@@ -166,8 +197,8 @@ def replay_batch_summary(meta, val, prev_in, seen_in):
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if meta.device.type == "cpu":
         return replay_batch_summary_reference(meta, val, prev_in, seen_in)
-    c, b, dev = _check_replay_args(meta, val, prev_in, seen_in)
-    emits = torch.empty_like(meta)
+    c, b, dev, strides = _check_replay_args(meta, val, prev_in, seen_in)
+    emits, emit_strides = _emits_like(meta)
     prev_out = torch.empty_like(prev_in)
     seen_out = torch.empty_like(seen_in)
     pupd = torch.empty_like(prev_in)
@@ -177,7 +208,8 @@ def replay_batch_summary(meta, val, prev_in, seen_in):
             "replay_summary", "qk_replay_summary", dev,
             meta.data_ptr(), val.data_ptr(), prev_in.data_ptr(),
             seen_in.data_ptr(), emits.data_ptr(), prev_out.data_ptr(),
-            seen_out.data_ptr(), pupd.data_ptr(), swr.data_ptr(), c, b)
+            seen_out.data_ptr(), pupd.data_ptr(), swr.data_ptr(), c, b,
+            *strides, *emit_strides)
     return emits, prev_out, seen_out, pupd, swr
 
 

@@ -3,9 +3,15 @@ PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
 chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
 one-shot codec and the streaming codec at a small size against the port's
 oracle, and the experiment scripts (E2-E7, and E8/E9 in profile_r2) at a
-small size.  Without a CUDA device every test here skips.
+small size; and K1 and K5 against their plain versions on the whole output
+over no rows and tile-edge row counts, lane counts, both row layouts and
+one-class, reset, random and palette rows; and the latency probe behind
+the replay chain bound against its plain loop.  Without a CUDA device
+every test here skips.
 
-Run on a GPU machine: python -m pytest tests/test_torch_cuda.py -q"""
+Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
+
+    python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q"""
 
 import numpy as np
 import pytest
@@ -14,6 +20,7 @@ import torch
 from qoipp_tpu_torch import kernels, oracle
 from qoipp_tpu_torch.common import Channels, Desc
 from qoipp_tpu_torch.kernels import selfcheck
+from qoipp_tpu_torch.ops.bitops import hash6
 from qoipp_tpu_torch.utils.corpus import make_corpus, make_image
 
 pytestmark = pytest.mark.cuda
@@ -32,6 +39,81 @@ def test_kernel_matches_plain_version(cuda, name):
     before = kernels.launch_counts()[name]
     assert selfcheck.check(name, cuda) <= selfcheck.TOLERANCE.get(name, 0)
     assert kernels.launch_counts()[name] > before
+
+
+REPLAY_TILE = selfcheck.REPLAY_TILE
+REPLAY_LANES = (1, 16, 40, 130)
+
+
+def _replay_rows(pattern, c, b, rng):
+    """(C, B) uint32 (meta, val) of one pattern: a single class (nop, run,
+    idx, seta, add), random classes with resets in the middle of tiles
+    (resets), every class with rare resets (random), or SETA/SETC/ADD/IDX
+    rows over a four-pixel palette whose IDX rows read the palette's
+    slots, so that they often read a slot one of the two rows before them
+    wrote (palette)."""
+    single = {"nop": 0, "seta": 1, "add": 3, "idx": 4, "run": 5}
+    words = lambda shape: rng.integers(0, 1 << 32, shape,
+                                       dtype=np.uint64).astype(np.uint32)
+    arg = rng.integers(0, 64, (c, b))
+    rst = np.zeros((c, b), np.int64)
+    val = words((c, b))
+    if pattern in single:
+        cls = np.full((c, b), single[pattern])
+    elif pattern == "palette":
+        pal = words(4)
+        slots = [int(hash6(torch.tensor(int(p)).to(torch.int32))) for p in
+                 pal.view(np.int32)]
+        cls = rng.choice([1, 2, 3, 4, 4, 4], (c, b))
+        arg = rng.choice(slots + [53], (c, b))
+        val = np.where(cls == 3, 0, pal[rng.integers(0, 4, (c, b))])
+    else:
+        cls = rng.integers(0, 8, (c, b))
+        if pattern == "resets":
+            for r in (REPLAY_TILE // 2, REPLAY_TILE + 7, 2 * REPLAY_TILE + 1):
+                if r < c:
+                    rst[r, ::2] = 1
+        else:
+            rst = (rng.random((c, b)) < 0.002).astype(np.int64)
+    return (cls | arg << 3 | rst << 9).astype(np.uint32), val.astype(np.uint32)
+
+
+@pytest.mark.parametrize("summary", [False, True])
+@pytest.mark.parametrize("pattern", ["nop", "run", "idx", "seta", "add",
+                                     "resets", "random", "palette"])
+def test_replay_kernels_match_plain_version(cuda, pattern, summary):
+    """K1 (summary False) and K5 on the whole output at C = 0, 1, T - 1, T
+    and 3T + 5 rows (T the kernel's tile) and B = 1, 16, 40, 130 lanes, with
+    chunk-major and lane-major rows; lanes are independent, so the plain
+    version runs once at the largest B."""
+    from qoipp_tpu_torch.ops import replay_kernel as rk
+
+    fn, ref = ((rk.replay_batch_summary, rk.replay_batch_summary_reference)
+               if summary else
+               (rk.replay_batch_carry, rk.replay_batch_carry_reference))
+    name = "replay_summary" if summary else "replay"
+    before = kernels.launch_counts()[name]
+    bmax = max(REPLAY_LANES)
+    sizes = (0, 1, REPLAY_TILE - 1, REPLAY_TILE, 3 * REPLAY_TILE + 5)
+    for c in sizes:
+        rng = np.random.default_rng(c)
+        words = lambda shape: rng.integers(0, 1 << 32, shape,
+                                           dtype=np.uint64).astype(np.uint32)
+        meta, val = _replay_rows(pattern, c, bmax, rng)
+        prev, seen = words((1, bmax)), words((64, bmax))
+        args = [torch.from_numpy(x.view(np.int32)).to(cuda)
+                for x in (meta, val, prev, seen)]
+        want = ref(*args)
+        for b in REPLAY_LANES:
+            rows = [x[:, :b].contiguous() for x in args]
+            lane_major = [x.T.contiguous().T for x in rows[:2]] + rows[2:]
+            for case in (rows, lane_major):
+                got = fn(*case)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w[:, :b]), (pattern, c, b)
+    assert kernels.launch_counts()[name] == (
+        before + len(sizes) * 2 * len(REPLAY_LANES))
 
 
 @pytest.mark.parametrize("channels", [3, 4])
@@ -174,3 +256,16 @@ def test_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         place_kernel.place_fill(pb.to(torch.int32).T.contiguous().T, emits,
                                 8192)
+
+
+def test_dep_chain_matches_plain_version(cuda):
+    from qoipp_tpu_torch.benchmarks import replay_probe
+    from qoipp_tpu_torch.ops import probes
+
+    before = kernels.launch_counts()["dep_chain"]
+    cycles, ns, x = probes.dep_chain(cuda, 3)
+    assert x == probes.dep_chain_reference(3)
+    assert cycles > 0 and ns >= 0
+    assert kernels.launch_counts()["dep_chain"] == before + 1
+    lat, mhz = replay_probe.chain_latency(cuda)
+    assert 1 <= lat < 64 and 100 < mhz < 5000

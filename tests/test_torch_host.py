@@ -5,6 +5,8 @@ must be byte-equal, so both packages see the same inputs and plans."""
 import importlib.util
 from pathlib import Path
 
+import qoipp_tpu_torch
+
 import numpy as np
 import pytest
 
@@ -53,6 +55,52 @@ def test_read_header_errors_match_jax(data):
     got, want = common.read_header(data), jcommon.read_header(data)
     assert not got and not want
     assert int(got.error()) == int(want.error())
+
+
+def _header_path(tmp_path, kind):
+    """A path of each kind read_header tells apart."""
+    if kind == "missing":
+        return tmp_path / "missing.qoi"
+    if kind == "directory":
+        return tmp_path
+    path = tmp_path / f"{kind}.qoi"
+    if kind == "short":
+        path.write_bytes(b"qoif\0")
+    else:
+        _, _, blobs = corpus.make_corpus(1, 64, 48, seed=3, channels=4)
+        path.write_bytes(blobs[0].tobytes())
+    return path
+
+
+@pytest.mark.parametrize("as_str", [False, True])
+@pytest.mark.parametrize("kind", ["missing", "directory", "short", "valid"])
+def test_read_header_of_path_matches_jax(tmp_path, kind, as_str):
+    path = _header_path(tmp_path, kind)
+    arg = str(path) if as_str else path
+    got, want = common.read_header(arg), jcommon.read_header(arg)
+    assert bool(got) == bool(want) == (kind == "valid")
+    if got:
+        assert _same_desc(got.value(), want.value())
+    else:
+        assert int(got.error()) == int(want.error())
+        assert got.error().name == {"missing": "FILE_NOT_EXISTS",
+                                    "directory": "NOT_REGULAR_FILE",
+                                    "short": "IO_ERROR"}[kind]
+
+
+def test_package_exports_resolve():
+    for name in qoipp_tpu_torch.__all__:
+        assert getattr(qoipp_tpu_torch, name) is not None
+    from qoipp_tpu_torch.ops import device_stream
+
+    assert qoipp_tpu_torch.DeviceStreamDecoder is \
+        device_stream.DeviceStreamDecoder
+    assert qoipp_tpu_torch.DeviceStreamEncoder is \
+        device_stream.DeviceStreamEncoder
+    assert qoipp_tpu_torch.read_header is common.read_header
+    assert qoipp_tpu_torch.Error is common.Error
+    for name in ("api", "stream", "ServingCodec", "SplitDecoder"):
+        assert name not in qoipp_tpu_torch.__all__
 
 
 def test_error_codes_match_jax():

@@ -80,6 +80,61 @@ def test_replay_initial_state_index53():
     assert int(words_to_numpy(got)[0, 0]) == 0xFF000000
 
 
+@pytest.mark.parametrize("seed,p_rst", [(4, 0.0), (5, 0.02)])
+def test_replay_emits_repeat_the_last_state_row(seed, p_rst):
+    # the identity the kernel's fill relies on: a row that is not a state
+    # row (class 1-4, or a reset) emits the emit of the last state row
+    # before it in the lane, or prev_in before the first
+    rng = np.random.default_rng(seed)
+    c, b = 700, 6
+    meta, val = _chunk_rows(rng, c, b, p_rst)
+    meta[:, 1] = (meta[:, 1] & ~np.uint32(7)) | rng.choice([0, 5, 6, 7], c)
+    prev, seen = _words(rng, (1, b)), _words(rng, (64, b))
+    emits = words_to_numpy(replay_kernel.replay_batch_carry_reference(
+        words_to_torch(meta), words_to_torch(val), words_to_torch(prev),
+        words_to_torch(seen))[0])
+    cls = meta & 7
+    state = ((cls >= 1) & (cls <= 4)) | ((meta >> 9) & 1 == 1)
+    assert state.any() and (~state).any()
+    for lane in range(b):
+        last = prev[0, lane]
+        for r in range(c):
+            if state[r, lane]:
+                last = emits[r, lane]
+            else:
+                assert emits[r, lane] == last, (lane, r)
+
+
+# rows (cls, arg, rst) of one lane each, val 0, and the longest chain of
+# dependent operations they need: SETA 0, SETC 1, ADD 2 after prev, IDX 1
+# after its slot's last writer (ADD of 0 keeps the start pixel, slot 53)
+CHAIN_CASES = {
+    "setc": ([[(2, 0, 0)] * 3], 3),
+    "add": ([[(3, 0, 0)] * 3], 6),
+    "seta_restarts": ([[(3, 0, 0), (3, 0, 0), (1, 0, 0), (2, 0, 0)]], 4),
+    "nop_run_free": ([[(2, 0, 0), (0, 0, 0), (5, 0, 0), (6, 0, 0),
+                       (7, 0, 0), (2, 0, 0)]], 2),
+    "idx_reads_its_writer": ([[(3, 0, 0)] * 3 + [(1, 0, 0), (4, 53, 0)]], 7),
+    "idx_of_an_older_slot": ([[(3, 0, 0)] * 3 + [(4, 1, 0), (2, 0, 0)]], 6),
+    "reset_restarts": ([[(3, 0, 0)] * 3 + [(3, 0, 1), (3, 0, 0)]], 6),
+    "longest_lane": ([[(2, 0, 0)] * 2, [(3, 0, 0)] * 2 + [(0, 0, 0)]], 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_depth_counts_the_function_dependences(case):
+    from qoipp_tpu_torch.benchmarks import replay_probe
+    lanes, want = CHAIN_CASES[case]
+    c = max(map(len, lanes))
+    meta = np.zeros((c, len(lanes)), np.uint32)
+    for j, rows in enumerate(lanes):
+        for r, (cls, arg, rst) in enumerate(rows):
+            meta[r, j] = cls | arg << 3 | rst << 9
+    tm = words_to_torch(meta)
+    emits = replay_kernel.replay_batch(tm, torch.zeros_like(tm))
+    assert replay_probe.chain_depth(tm, emits) == want
+
+
 def _pix_before(rng, b, q, mean_px):
     """Boundary-pass-shaped offsets: exclusive prefix sums of per-row pixel
     counts (0 on non-start rows, 1..62 on chunk starts)."""

@@ -5,8 +5,9 @@ squeezed (S, 128) block (``o_ref[:, :] =`` does not trace on this JAX:
 "Invalid shape for swap"), within 1e-6.  On CPU tensors the wrappers
 (qoipp_tpu_torch.ops.probes) take their plain versions; the kernels run on
 the card (tests/test_torch_cuda.py, chip_smoke.py).  Also: E9's inputs
-against the script's lines, and the port's profile_r2 main at a tiny
-size."""
+against the script's lines, the port's profile_r2 main at a tiny size,
+and the card's latency probe (``dep_chain``, no TPU kernel's counterpart):
+it refuses the CPU, and its plain loop wraps 32-bit words."""
 
 import importlib.util
 import inspect
@@ -144,3 +145,16 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take():
         probes.onehot_place(t, torch.zeros((2, 8)))
     with pytest.raises(ValueError, match="s must be"):
         probes.onehot_place(t, torch.zeros((2, 16)), s=0)
+
+
+def test_dep_chain_measures_only_the_card():
+    with pytest.raises(ValueError, match="CUDA device"):
+        probes.dep_chain("cpu", 1)
+
+
+def test_dep_chain_reference_wraps_32_bit_words():
+    x, a, b = np.uint32(1), np.uint32(0x9E3779B9), np.uint32(0x7F4A7C15)
+    with np.errstate(over="ignore"):
+        for _ in range(2 * probes.CHAIN_UNROLL):
+            x = (x + a) ^ b
+    assert probes.dep_chain_reference(2) == int(x)

@@ -225,3 +225,29 @@ def test_compact_chunks_matches_jax():
         assert np.array_equal(words_to_numpy(got[1])[i, :c],
                               np.asarray(want[1])[i, :c])
         assert not got[1][i, c:].any()
+
+
+def test_stage_to_device_is_stage_plan_of_plan(monkeypatch):
+    rng = np.random.default_rng(4)
+    blobs = [_encode(_mixed_image(rng, 96, 64, ch), 96, 64, ch)
+             for ch in (3, 4)]
+    dec = split.SplitDecoder(lanes=8, device="cpu")
+    got = dec.stage_to_device(blobs)
+    want = dec.stage_plan(dec.plan_and_pack(blobs))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        elif isinstance(g, list) and g and hasattr(g[0], "channels"):
+            assert [(d.width, d.height, int(d.channels)) for d in g] == [
+                (d.width, d.height, int(d.channels)) for d in w]
+        else:
+            assert g == w
+    calls = []
+    staged = dec.stage_to_device
+    monkeypatch.setattr(dec, "stage_to_device",
+                        lambda b: calls.append(b) or staged(b))
+    packed, where, descs, rounds = dec.decode_to_device(blobs)
+    assert calls == [blobs]
+    assert rounds >= 1 and packed.shape[0] == got[0].shape[0]
+
