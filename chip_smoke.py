@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (ten sources,
+1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (nine sources,
    one nvcc each, started together) and the native oracle from
    native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
@@ -31,9 +31,8 @@
    - the windowed placement experiments E2, E3, E5 and E6
      (qoipp_tpu_torch/benchmarks: expt_place_wide, expt_place2,
      expt_place_narrow, expt_place_fixed), each main at its own sizes:
-     every variant against the plain windowed placement on the whole
-     output and, where exact, against K2 up to each image's last chunk
-     start, bit-exact, then timed beside K2;
+     every variant against the plain windowed placement and, where exact,
+     against K2, on the whole output, bit-exact, then timed beside K2;
    - E4's experiment (benchmarks/expt_place, B=128 x 286,720 rows, n_cap
      2,088,960): its exact variant against the plain grouped summed
      placement on the whole output and K2 up to each image's last chunk
@@ -48,12 +47,15 @@
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
-   inputs; E8 and E9 from the probes' run, beside their torch calls; K1
-   and K5 on the first and on the last 4,096 rows, the last from the
-   kernel's own carry, timed beside the first build's time and their chain
-   bound: the longest chain of dependent operations the function needs on
-   those rows, at the dependent-issue latency and SM clock the card
-   shows in the same run), runs the replay class probe
+   inputs; E8 and E9 from the probes' run, beside their torch calls; K2 on
+   the batch and the split path's whole output and E1 at both
+   stream-encode shapes and, logged only, at 8 batch RGB images, each
+   also in device time (torch.profiler) and beside its first build's
+   time; K1 and K5 on the first and on the last 4,096 rows, the last from
+   the kernel's own carry, timed beside the first build's time and their
+   chain bound: the longest chain of dependent operations the function
+   needs on those rows, at the dependent-issue latency and SM clock the
+   card shows in the same run), runs the replay class probe
    (benchmarks/replay_probe: K1 at 16 x 277,888 rows and K5 at 96 x
    12,288 on all-NOP, all-SETA, all-ADD and all-IDX rows and the cells'
    own, in ns a row), then times every path (1 cold, 3 warmup, 5 timed
@@ -108,6 +110,7 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     replay_kernel,
 )
 from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
+from qoipp_tpu_torch.utils import profile  # noqa: E402
 from qoipp_tpu_torch.utils.corpus import make_corpus, make_image  # noqa: E402
 
 W, H = 1920, 1088
@@ -115,9 +118,12 @@ CORPORA = (("rgb", 16, 0, 3), ("rgba", 8, 7, 4))  # label, B, seed, channels
 SPLIT_SIDE = 4096  # the sparse split stream is SPLIT_SIDE x SPLIT_SIDE RGB
 SPLIT_LANES = 96  # SplitDecoder's serving default
 PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs 0.2-0.4 ms per row
-# K1 and K5 as first built (one thread a lane, 32 lanes a block), ms a call
-# at the shapes phase 5 times, on an H100 80GB HBM3 at 700 W (PERF.md §6)
-FIRST_BUILD_MS = {"replay": 51.143, "replay_summary": 2.113}
+# the kernels as first built, ms a call at the shapes phase 5 times, on an
+# H100 80GB HBM3 at 700 W (PERF.md §6): K1 and K5 one thread a lane, 32
+# lanes a block; K2 a binary search a pixel; E1 one block a row
+FIRST_BUILD_MS = {"replay": 51.143, "replay_summary": 2.113,
+                  "place_fill batch": 1.158, "place_fill split": 0.722,
+                  "fields 1 x 262144": 0.4419, "fields 16 x 65536": 0.1135}
 # dependent instructions from one state row's value to the next in the
 # replay chain thread's loop as built (python -m
 # qoipp_tpu_torch.benchmarks.replay_probe --sass FILE; PERF.md): this
@@ -161,11 +167,12 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
 # the replays: class decode, selects, per-byte add, hash, table write; per
 # input row for compact; per output byte for emit; per pixel for fields:
 # compare, streak, hash, table lookup, four deltas, op selection, template
-# packing); place_fill and logfill count theirs from the data
+# packing); logfill counts its own from the data
 OPS_PER_ELEMENT = {"replay": 24, "replay_summary": 28, "compact": 3,
                    "emit": 4, "fields": 60}
-# the windowed placement: per candidate row the writer and window tests,
-# per pixel six fill passes of a test and a select and the carry select
+# the windowed placement (K2, E2-E6): per candidate row the writer and
+# window tests, per pixel six fill passes of a test and a select and the
+# carry select
 WINDOW_OPS_PER_ROW, WINDOW_OPS_PER_PIXEL = 4, 14
 # E2, E3, E5, E6: kernel -> (experiment module, a function making the main
 # input its phase 5 row times, (case, pb, emits, n_cap) as numpy, the
@@ -197,6 +204,7 @@ STREAM_DECODE = ((1 << 20, "sparse"), (4 << 20, "sparse"),
 STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
                  (1 << 18, 1, "rgba"), (1 << 18, 8, "rgba"))  # px, lanes
 FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
+FIELDS_BATCH = 8  # E1's logged third shape: 8 batch RGB images
 PROBE_RUNS = 5  # timed calls per profile_r2 probe
 
 
@@ -213,6 +221,15 @@ def bound(nbytes, ops):
     """The least time the card could take: (s, what bounds it)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+
+
+def device_ms(fn, group):
+    """Device time a call of fn spends in kernel group ``group``: the sum
+    of its kernels' intervals under torch.profiler over 20 calls (the
+    profiler drops its window's first event, 1/20 of a launch or less)."""
+    groups = profile.profile_path(fn, calls=20, warmup=1)["groups"]
+    expect(group in groups, f"the profiler saw no {group} kernel")
+    return groups[group][0]
 
 
 def phase0_device():
@@ -589,8 +606,12 @@ def phase5_kernels_at_main_shapes(run, launches, card):
         launches, card, "batch RGB")]
 
     emits = replay_kernel.replay_batch(meta_t, val_t).T.contiguous()
-    rows.append(_place_fill_row(pix_before, emits, pipe.n_cap, launches,
-                                "batch"))
+    k2 = _place_fill_time(pix_before, emits, pipe.n_cap, "batch", card)
+    rows.append(_kernel_row("place_fill", launches["place_fill"], k2["err"],
+                            k2["ms"], k2["plain_ms"], k2["bytes"],
+                            k2["ops"], device_ms=k2["device_ms"],
+                            rows=k2["rows"], images=k2["images"],
+                            n_cap=k2["n_cap"]))
 
     packed = run["packed_in"][:8]  # the sub-batch encode_packed_chunked runs
     posflag, keep, fb = enc_ops.chunk_positions(packed, pipe.n_px)
@@ -631,25 +652,36 @@ def phase5_kernels_at_main_shapes(run, launches, card):
     return rows
 
 
-def _place_fill_row(pix_before, emits, n_cap, launches, where):
+def _place_fill_time(pix_before, emits, n_cap, where, card):
+    """K2 on its path's rows against its plain version on the whole
+    output, both timed; the bound counts the windowed placement's work."""
     args = (pix_before, emits, n_cap)
     err = selfcheck.max_abs_err(place_kernel.place_fill(*args),
                                 place_kernel.place_fill_reference(*args))
     expect(err == 0, f"place_fill disagrees with its plain version ({where})")
     ms = timed_ms(lambda: place_kernel.place_fill(*args))
+    dev_ms = device_ms(lambda: place_kernel.place_fill(*args),
+                       "K2 place_fill")
     plain_ms = timed_ms(lambda: place_kernel.place_fill_reference(*args))
     b, q = pix_before.shape
+    nbytes = 8 * b * q + 4 * b * n_cap
+    ops = b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap)
+    bound_s, bound_by = bound(nbytes, ops)
+    first = FIRST_BUILD_MS[f"place_fill {where}"]
     log(f"phase 5: place_fill on the {where} path ({b} x {q} rows -> "
-        f"{n_cap} px): {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    # a binary search over the rows per pixel: ~2 operations per step
-    return _kernel_row("place_fill", launches["place_fill"], err, ms,
-                       plain_ms, 8 * b * q + 4 * b * n_cap,
-                       2 * b * n_cap * max(q, 2).bit_length())
+        f"{n_cap} px, {b * n_cap // place_kernel.WIN} windows): "
+        f"{ms:.4f} ms (device {dev_ms:.4f}; first build {first} ms, "
+        f"{first / ms:.1f}x), "
+        f"plain {plain_ms:.3f} ms, bound {bound_s * 1e3:.5f} ms "
+        f"({bound_by}), whole output equal to the plain version, on {card}")
+    return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bytes=nbytes, ops=ops, bound_ms=bound_s * 1e3, rows=q,
+                images=b, n_cap=n_cap)
 
 
 def phase5_split_kernels(run, launches, card):
-    """K5 on the sparse split stream's rows from the round-0 guess, K2 on
-    its lanes (timed, not reported: the batch path's K2 row stands)."""
+    """K5 on the sparse split stream's rows from the round-0 guess, and K2
+    on its lanes; returns K5's row and K2's split timing."""
     dec = run["dec"]
     (regions, _, chunks_sizes, px_budgets, _, _, _, qb, n_cap,
      qc) = dec.stage_plan(run["plan"])
@@ -660,8 +692,7 @@ def phase5_split_kernels(run, launches, card):
                       "split sparse, one fixpoint round")
     emits = replay_kernel.replay_batch_summary(meta_t, val_t,
                                                *carry)[0].T.contiguous()
-    _place_fill_row(pix_before, emits, n_cap, launches, "split")
-    return row
+    return row, _place_fill_time(pix_before, emits, n_cap, "split", card)
 
 
 def phase5_replay_probe(run, sparse, rows, card):
@@ -710,11 +741,43 @@ def phase5_logfill(run, launches, dev):
                        8 * b * n, reads, words=b * n)
 
 
-def phase5_fields(sparse, launches, dev):
+def _fields_time(packed, v, prev_in, run_in, seen_in, what, card):
+    """E1 on one input against its plain version, both timed; its launch
+    configuration logged.  Returns (err, ms, device_ms, plain_ms,
+    bound_ms)."""
+    args = (packed, v, 3, prev_in, run_in, seen_in)
+    err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
+        fields_kernel.encode_fields_planes(*args),
+        fields_kernel.encode_fields_planes_reference(*args)))
+    lanes, n = packed.shape
+    expect(err == 0, f"fields disagrees with its plain version at {lanes} "
+           f"x {n}")
+    ms = timed_ms(lambda: fields_kernel.encode_fields_planes(*args))
+    dev_ms = device_ms(lambda: fields_kernel.encode_fields_planes(*args),
+                       "E1 fields")
+    plain_ms = timed_ms(
+        lambda: fields_kernel.encode_fields_planes_reference(*args))
+    npx = lanes * n
+    bound_s, _ = bound(12 * npx, OPS_PER_ELEMENT["fields"] * npx)
+    sms = torch.cuda.get_device_properties(packed.device).multi_processor_count
+    seg_tiles, nseg = fields_kernel.segments(lanes, n, sms)
+    first = FIRST_BUILD_MS.get(f"fields {lanes} x {n}")
+    log(f"phase 5: fields ({what}, {lanes} x {n} px): {ms:.4f} ms, device "
+        f"{dev_ms:.4f} ms, {npx / dev_ms / 1e3:.1f} MPix/s (first build "
+        f"{'not timed' if first is None else f'{first} ms'}); plain "
+        f"{plain_ms:.4f} ms; bound {bound_s * 1e3:.5f} ms; launch: "
+        f"{nseg} segment(s) a row of {seg_tiles} tile(s), grid {lanes} x "
+        f"{nseg} blocks of {fields_kernel.SEG_TILE} threads on {sms} SMs"
+        f"{', summaries first' if nseg > 1 else ''}, on {card}")
+    return err, ms, dev_ms, plain_ms, bound_s * 1e3
+
+
+def phase5_fields(sparse, batch, launches, dev, card):
     """E1 against its plain version at the two encode-window shapes of the
     4096x4096 image's first window (1 x 2^18 pixels, and 16 lanes x 2^16
-    with their closed-form carries), both timed; bound: 4 bytes read and
-    8 written per pixel."""
+    with their closed-form carries), both timed, and, logged only, on the
+    first FIELDS_BATCH images of the batch RGB corpus from the start
+    state; bound: 4 bytes read and 8 written per pixel."""
     times = []
     for lanes, n in FIELDS_SHAPES:
         packed = pixels_to_packed(torch.from_numpy(
@@ -722,27 +785,26 @@ def phase5_fields(sparse, launches, dev):
         prev0, run0, seen0 = fields_kernel.start_state(1, dev)
         v, prev_in, run_in, seen_in = device_stream.lane_carries(
             packed, lanes * n, prev0[0], run0[0], seen0[:, 0])
-        args = (packed, v, 3, prev_in, run_in, seen_in)
-        err = max(selfcheck.max_abs_err(g, w) for g, w in zip(
-            fields_kernel.encode_fields_planes(*args),
-            fields_kernel.encode_fields_planes_reference(*args)))
-        expect(err == 0, f"fields disagrees with its plain version at "
-               f"{lanes} x {n}")
-        ms = timed_ms(lambda: fields_kernel.encode_fields_planes(*args))
-        plain_ms = timed_ms(
-            lambda: fields_kernel.encode_fields_planes_reference(*args))
-        npx = lanes * n
-        bound_s, _ = bound(12 * npx, OPS_PER_ELEMENT["fields"] * npx)
-        log(f"phase 5: fields ({lanes} x {n} px): {ms:.4f} ms, "
-            f"{npx / ms / 1e3:.1f} MPix/s; plain {plain_ms:.4f} ms; bound "
-            f"{bound_s * 1e3:.5f} ms")
-        times.append((err, ms, plain_ms, npx, bound_s * 1e3))
-    (err, ms, plain_ms, npx, _), (err_l, ms_l, plain_l, _, bound_l) = times
+        times.append(_fields_time(packed, v, prev_in, run_in, seen_in,
+                                  "stream encode", card))
+    packed = batch["packed_in"][:FIELDS_BATCH].contiguous()
+    v = torch.full((FIELDS_BATCH,), batch["pipe"].n_px, dtype=torch.int32,
+                   device=dev)
+    err_b, ms_b, dev_b, plain_b, bound_b = _fields_time(
+        packed, v, *fields_kernel.start_state(FIELDS_BATCH, dev),
+        "batch RGB, log only", card)
+    ((err, ms, dev_ms, plain_ms, _),
+     (err_l, ms_l, dev_ms_l, plain_l, bound_l)) = times
+    npx = FIELDS_SHAPES[0][0] * FIELDS_SHAPES[0][1]
     return _kernel_row(
-        "fields", launches["fields"], max(err, err_l), ms, plain_ms,
-        12 * npx, OPS_PER_ELEMENT["fields"] * npx, lanes=1, pixels=npx,
-        ms_lanes=ms_l, plain_ms_lanes=plain_l, bound_ms_lanes=bound_l,
-        lanes_shape=list(FIELDS_SHAPES[1]))
+        "fields", launches["fields"], max(err, err_l, err_b), ms, plain_ms,
+        12 * npx, OPS_PER_ELEMENT["fields"] * npx, device_ms=dev_ms,
+        lanes=1, pixels=npx, ms_lanes=ms_l, device_ms_lanes=dev_ms_l,
+        plain_ms_lanes=plain_l, bound_ms_lanes=bound_l,
+        lanes_shape=list(FIELDS_SHAPES[1]),
+        ms_batch=ms_b, device_ms_batch=dev_b, plain_ms_batch=plain_b,
+        bound_ms_batch=bound_b,
+        batch_shape=list(packed.shape))
 
 
 def _time_path(what, fn, mpix, card):
@@ -777,9 +839,9 @@ def phase5_window(name, results, launches, dev, card):
     base = place_window.window_base_rows_w(pb, n_cap, lanes)
     call = lambda: wrapper(pb, em, base, n_cap)
     err = selfcheck.max_abs_err(
-        call(), place_window.windowed_place_reference(pb, em, n_cap))
+        call(), place_kernel.place_fill_reference(pb, em, n_cap))
     expect(err == 0, f"{name} disagrees with its plain version")
-    plain = lambda: place_window.windowed_place_reference(pb, em, n_cap)
+    plain = lambda: place_kernel.place_fill_reference(pb, em, n_cap)
     k2 = lambda: place_kernel.place_fill(pb, em, n_cap)
     plain_ms = timed_ms(plain, warmup=1, runs=3)
     ms = timed_ms(call)
@@ -965,10 +1027,15 @@ def main():
           ("grid_step", "onehot_place"), launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
-    rows.append(phase5_split_kernels(sparse, launches, card))
+    k5, k2_split = phase5_split_kernels(sparse, launches, card)
+    rows.append(k5)
+    k2 = next(r for r in rows if r["name"] == "place_fill")
+    k2.update({f"{k}_split": k2_split[k] for k in (
+        "ms", "device_ms", "plain_ms", "bound_ms", "rows", "images",
+        "n_cap")})
     phase5_replay_probe(runs[0], sparse, rows, card)
     rows.append(phase5_logfill(oneshot[0], launches, dev))
-    rows.append(phase5_fields(sparse, launches, dev))
+    rows.append(phase5_fields(sparse, runs[0], launches, dev, card))
     for name in EXPERIMENTS:
         rows.append(phase5_window(name, results, launches, dev, card))
     rows.append(phase5_place_grouped(results, launches, dev, card))

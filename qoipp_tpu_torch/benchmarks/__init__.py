@@ -7,8 +7,9 @@ One module per experiment script, under the same file name:
 a byte-equal numpy copy of its script's input generator, its variants and
 its sizes, and a ``main`` that holds every variant against its plain
 version on the whole output and, where the variant computes the
-production function, against the port's K2 (up to each image's last chunk
-start) or K4, then times the variant beside it with CUDA events:
+production function, against the port's K2 (E4 up to each image's last
+chunk start, the others on the whole output) or K4, then times the variant
+beside it with CUDA events:
 
     python -m qoipp_tpu_torch.benchmarks.expt_place_wide
 
@@ -22,7 +23,7 @@ import torch
 
 from ..kernels.selfcheck import max_abs_err
 from ..ops import place_kernel
-from ..ops.place_window import windowed_place_reference, writers
+from ..ops.place_kernel import place_fill_reference, writers
 
 
 def timed_ms(fn, warmup: int = 3, runs: int = 5) -> float:
@@ -58,15 +59,15 @@ def run_variant(case: str, name: str, call, pb, emits, n_cap: int,
                 runs: int, n_fill: int = 6, place: bool = True) -> dict:
     """Run ``call()`` (a wrapper on pb, emits), hold it against the plain
     windowed placement at (n_fill, place) and, for an exact variant, K2's
-    prefix; time it and K2 if ``runs``.  Returns the result row."""
+    whole output; time it and K2 if ``runs``.  Returns the result row."""
     got = call()
-    want = windowed_place_reference(pb, emits, n_cap, n_fill, place)
+    want = place_fill_reference(pb, emits, n_cap, n_fill, place)
     row = dict(case=case, variant=name, max_abs_err=max_abs_err(got, want),
                k2_err=None, ms=None, k2_ms=None)
     del want
     k2 = lambda: place_kernel.place_fill(pb, emits, n_cap)
     if n_fill == 6 and place:
-        row["k2_err"] = prefix_err(got, k2(), pb, n_cap)
+        row["k2_err"] = max_abs_err(got, k2())
     del got
     if runs:
         row["ms"] = timed_ms(call, runs=runs)
@@ -82,7 +83,7 @@ def describe(row: dict) -> str:
     else:
         ok = row["max_abs_err"] == 0 and row["k2_err"] in (None, 0)
         parity = (f"{'OK' if ok else 'FAIL'} (plain {row['max_abs_err']}, "
-                  f"K2 prefix "
+                  f"K2 "
                   f"{'-' if row['k2_err'] is None else row['k2_err']})")
     text = f"{row['case']:>12} {row['variant']:>20}: parity {parity}"
     if row["ms"] is not None:

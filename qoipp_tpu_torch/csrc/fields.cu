@@ -11,15 +11,29 @@
 // back the table after its last valid pixel: a streaming window's state.
 //
 // What bounds it on the card: memory traffic in principle (4 bytes read
-// and 8 written per pixel), but a row is one sequential dependency chain
-// through its state, so with one block per row a row's time is tiles x
-// the latency of one tile's three barriers.
-// What the design does: one block of 1,024 threads per row walks the row
-// in tiles of one pixel per thread and carries (prev pixel, last
-// differing position, whether the last pixel repeated its predecessor,
-// the table) between tiles in shared memory.  The Pallas kernel's 11-pass
-// log-shift prefix max and (16, 128, 128) one-hot masks were Mosaic
-// workarounds; inside a tile:
+// and 8 written per pixel), but a row is one dependency chain through its
+// state, and a block walking a row's tiles in order spends each tile on
+// the latency of its three barriers, so a row must spread over many SMs
+// (the stream encoder's windows are one row each).
+// What the design does: each row is cut into segments of whole tiles, so
+// that the grid holds about two blocks per SM (fields_kernel.segments);
+// the state entering a segment has a closed form:
+//   - prev pixel and whether it repeated its own predecessor: the input
+//     pixels just before the segment (prev_in, run_in at the row start);
+//   - the last differing position: the largest over earlier segments, or
+//     -(run_in + 1) if there is none;
+//   - the table: per slot, the pixel at the last differing position of
+//     that hash in earlier segments, else seen_in.
+// Pixels at or past n_px are not differing, so they touch no state.
+// Two launches, deterministic, no block waits on another:
+//   1. fields_summary_kernel: each segment but a row's last writes its
+//      last differing position and its 64 slots' last writers (position
+//      + 1, 0 for none);
+//   2. fields_kernel: each block folds the summaries of the segments
+//      before its own (a max over them, 16 threads a slot), reads the
+//      pixels those positions name, and walks its segment in tiles of one
+//      pixel per thread, carrying (prev pixel, last differing position,
+//      repeat flag, table) between tiles in shared memory.  Inside a tile:
 //   - run streaks: a warp max-scan (__shfl_up_sync) of the last differing
 //     position, combined across the 32 warps by one warp's scan;
 //   - the same-hash predecessor: __match_any_sync(hash) AND the ballot of
@@ -28,8 +42,8 @@
 //     summary, combined by an exclusive overwrite walk of 64 threads (one
 //     per slot) over the warps, which also carries the table on;
 //   - op selection and templates per pixel, coalesced stores.
-// The next tile's pixels are loaded while the current tile is coded.
-// Rows run in parallel blocks; one row uses one SM.
+// The next tile's pixels are loaded while the current tile is coded.  A
+// row's last segment holds its last pixel and writes the table out.
 #include <climits>
 
 #include "qoipp_kernels.cuh"
@@ -40,6 +54,12 @@ constexpr int kThreads = 1024;  // pixels per tile, one per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kRunBlock = 2048;  // pixels per run_out entry
 constexpr uint32_t kFull = 0xFFFFFFFFu;
+constexpr int kSumCols = 65;  // per segment: 64 slots' last writers, then
+                              // the last differing position, each + 1
+constexpr int kStripes = kThreads / 64;  // fold threads a slot
+constexpr int kSumThreads = 256;
+
+static_assert(kThreads % kSumThreads == 0, "segments are whole tiles");
 
 static_assert(kWarps == 32, "the cross-warp scan runs in one warp");
 
@@ -59,10 +79,48 @@ struct Shared {
   uint32_t table[64];        // the table entering the tile
   int warp_max[kWarps];      // last differing position in each warp
   int warp_enter[kWarps];    // last differing position before each warp
+  int fold[kStripes][64];    // the fold's partial maxima
   uint32_t prev;             // the pixel before the tile
   int last_diff;             // last differing position before the tile
   int eq_last;               // the pixel before the tile repeated its own
 };
+
+// Segment blockIdx.y of row blockIdx.x, seg_px pixels from s0: the last
+// differing valid position and each slot's last differing valid pixel,
+// + 1 (0 for none), into summary[(row * (nseg - 1) + segment) * kSumCols].
+__global__ void __launch_bounds__(kSumThreads)
+fields_summary_kernel(const uint32_t* __restrict__ packed,
+                      const int32_t* __restrict__ n_px,
+                      const uint32_t* __restrict__ prev_in,
+                      int32_t* __restrict__ summary, int Nb, int seg_px) {
+  __shared__ int last[kSumCols];
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const long long row = static_cast<long long>(b) * Nb;
+  const int npx = min(max(n_px[b], 0), Nb);
+  const int s0 = blockIdx.y * seg_px;
+  if (t < kSumCols) last[t] = 0;
+  __syncthreads();
+  int diff = 0;
+  // seg_px is a multiple of the block: every lane runs every step
+  for (int p = s0 + t; p < s0 + seg_px; p += kSumThreads) {
+    const uint32_t px = packed[row + p];
+    const uint32_t prev = p ? packed[row + p - 1] : prev_in[b];
+    const bool noneq = p < npx && px != prev;
+    const uint32_t h = qk::hash6(px);
+    const uint32_t writers = __match_any_sync(kFull, h) &
+                             __ballot_sync(kFull, noneq);
+    if (noneq && (writers >> lane) == 1u) atomicMax(&last[h], p + 1);
+    if (noneq) diff = p + 1;
+  }
+  diff = __reduce_max_sync(kFull, diff);
+  if (lane == 0 && diff) atomicMax(&last[64], diff);
+  __syncthreads();
+  if (t < kSumCols)
+    summary[(static_cast<long long>(b) * (gridDim.y) + blockIdx.y) *
+            kSumCols + t] = last[t];
+}
 
 __global__ void __launch_bounds__(kThreads)
 fields_kernel(const uint32_t* __restrict__ packed,
@@ -71,9 +129,14 @@ fields_kernel(const uint32_t* __restrict__ packed,
               const int32_t* __restrict__ run_in,
               const uint32_t* __restrict__ seen_in, uint32_t* __restrict__ tlo,
               uint32_t* __restrict__ thn, int32_t* __restrict__ run_out,
-              uint32_t* __restrict__ seen_out, int B, int Nb, int channels) {
+              uint32_t* __restrict__ seen_out,
+              const int32_t* __restrict__ summary, int B, int Nb,
+              int channels, int seg_px) {
   __shared__ Shared sh;
   const int b = blockIdx.x;
+  const int seg = blockIdx.y;
+  const int s0 = seg * seg_px;
+  const int s1 = min(Nb, s0 + seg_px);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -81,24 +144,52 @@ fields_kernel(const uint32_t* __restrict__ packed,
   const int npx = min(max(n_px[b], 0), Nb);
   const int nblk = (Nb + kRunBlock - 1) / kRunBlock;
 
-  if (t < 64) {
-    sh.table[t] = seen_in[static_cast<long long>(t) * B + b];
+  // the state entering the segment
+  const int run0 = run_in[b];
+  if (seg == 0) {
+    if (t < 64) sh.table[t] = seen_in[static_cast<long long>(t) * B + b];
+    if (t == 0) {
+      // the carried run is a streak of run0 equal pixels before position 0
+      sh.prev = prev_in[b];
+      sh.last_diff = -(run0 + 1);
+      sh.eq_last = run0 > 0;
+    }
+  } else {
+    // the summaries of segments 0 .. seg - 1: per column, the largest
+    const int32_t* sum =
+        summary + static_cast<long long>(b) * (gridDim.y - 1) * kSumCols;
+    int m = 0;
+    for (int j = warp >> 1; j < seg; j += kStripes)
+      m = max(m, sum[j * kSumCols + (t & 63)]);
+    sh.fold[warp >> 1][t & 63] = m;
+    if (warp == 0) {
+      int d = 0;
+      for (int j = lane; j < seg; j += 32) d = max(d, sum[j * kSumCols + 64]);
+      d = __reduce_max_sync(kFull, d);
+      if (lane == 0) {
+        sh.last_diff = d ? d - 1 : -(run0 + 1);
+        sh.prev = packed[row + s0 - 1];
+        // a segment starts at a multiple of the tile, so s0 >= 2
+        sh.eq_last = packed[row + s0 - 1] == packed[row + s0 - 2];
+      }
+    }
+    __syncthreads();
+    if (t < 64) {
+      int w = 0;
+      for (int i = 0; i < kStripes; ++i) w = max(w, sh.fold[i][t]);
+      sh.table[t] = w ? packed[row + w - 1]
+                      : seen_in[static_cast<long long>(t) * B + b];
+    }
+  }
+  if (t < 64)
     for (int w = 0; w < kWarps; ++w) sh.slot_set[w][t] = 0;
-  }
-  if (t == 0) {
-    // the carried run is a streak of run0 equal pixels before position 0
-    const int run0 = run_in[b];
-    sh.prev = prev_in[b];
-    sh.last_diff = -(run0 + 1);
-    sh.eq_last = run0 > 0;
-  }
-  uint32_t next = t < Nb ? packed[row + t] : 0u;
+  uint32_t next = s0 + t < s1 ? packed[row + s0 + t] : 0u;
 
-  for (int base = 0; base < Nb; base += kThreads) {
+  for (int base = s0; base < s1; base += kThreads) {
     const int p = base + t;
-    const bool in_row = p < Nb;
+    const bool in_row = p < s1;
     const uint32_t px = next;
-    if (p + kThreads < Nb) next = packed[row + p + kThreads];
+    if (p + kThreads < s1) next = packed[row + p + kThreads];
     sh.px[t] = px;
     __syncthreads();  // (1) the tile's pixels and the carry are in place
 
@@ -230,26 +321,44 @@ fields_kernel(const uint32_t* __restrict__ packed,
       sh.eq_last = eq;
     }
   }
-  if (t < 64) seen_out[static_cast<long long>(t) * B + b] = sh.table[t];
+  if (t < 64 && seg == static_cast<int>(gridDim.y) - 1)
+    seen_out[static_cast<long long>(t) * B + b] = sh.table[t];
 }
 
 }  // namespace
 
 // packed (B, Nb), n_px (B,), prev_in (B,), run_in (B,), seen_in (64, B)
 // -> tlo, thn (B, Nb), run_out (B, ceil(Nb / 2048)), seen_out (64, B);
-// all 32-bit.
+// all 32-bit.  Rows are cut into segments of seg_tiles tiles of 1024
+// pixels; summary is scratch of B * (segments - 1) * 65 words.
 QK_API int qk_fields(const void* packed, const void* n_px, const void* prev_in,
                      const void* run_in, const void* seen_in, void* tlo,
-                     void* thn, void* run_out, void* seen_out, int B,
-                     long long Nb, int channels, void* stream) {
-  if (B < 1 || Nb < 1 || Nb > INT_MAX - 2 * kThreads)
+                     void* thn, void* run_out, void* seen_out, void* summary,
+                     int B, long long Nb, int channels, int seg_tiles,
+                     void* stream) {
+  if (B < 1 || Nb < 1 || Nb > INT_MAX - 2 * kThreads || seg_tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  fields_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long seg_px = static_cast<long long>(seg_tiles) * kThreads;
+  const long long nseg = (Nb + seg_px - 1) / seg_px;
+  if (seg_px > Nb + kThreads || nseg > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nseg > 1) {
+    fields_summary_kernel<<<dim3(B, nseg - 1), kSumThreads, 0, st>>>(
+        static_cast<const uint32_t*>(packed),
+        static_cast<const int32_t*>(n_px),
+        static_cast<const uint32_t*>(prev_in), static_cast<int32_t*>(summary),
+        static_cast<int>(Nb), static_cast<int>(seg_px));
+    const int rc = qk::launch_status();
+    if (rc) return rc;
+  }
+  fields_kernel<<<dim3(B, nseg), kThreads, 0, st>>>(
       static_cast<const uint32_t*>(packed), static_cast<const int32_t*>(n_px),
       static_cast<const uint32_t*>(prev_in),
       static_cast<const int32_t*>(run_in),
       static_cast<const uint32_t*>(seen_in), static_cast<uint32_t*>(tlo),
       static_cast<uint32_t*>(thn), static_cast<int32_t*>(run_out),
-      static_cast<uint32_t*>(seen_out), B, static_cast<int>(Nb), channels);
+      static_cast<uint32_t*>(seen_out), static_cast<const int32_t*>(summary),
+      B, static_cast<int>(Nb), channels, static_cast<int>(seg_px));
   return qk::launch_status();
 }

@@ -59,9 +59,6 @@ constexpr int kStripes = kWin / 128;
 constexpr int kThreads = 512;
 constexpr int kStage = 512;   // rows staged per step (E3, E5, E6)
 
-constexpr unsigned long long kInherit = 1ull << 32;
-constexpr unsigned long long kValue = 2ull << 32;
-
 template <int NW, int ROWS>
 struct Smem {
   uint32_t word[NW * kWin];  // at offset 0, flag at a multiple of 16
@@ -84,7 +81,7 @@ struct Unit {
 template <class S>
 __device__ Unit begin(S& s, unsigned long long* status, long long units,
                       long long total) {
-  if (threadIdx.x == 0) s.ticket = atomicAdd(status + total, 1ull);
+  if (threadIdx.x == 0) s.ticket = qk::take_ticket(status, total);
   uint4* f = reinterpret_cast<uint4*>(s.flag);
   for (int i = threadIdx.x; i < int(sizeof(s.flag) / 16); i += kThreads)
     f[i] = make_uint4(0, 0, 0, 0);
@@ -152,26 +149,15 @@ __device__ void fill_pass(S& s, int k, int only) {
   __syncthreads();
 }
 
-// The decoupled look-back of unit `me` (thread 0 alone): publish the
-// unit's last output `last` if the unit owns it, else "inherit"; walk back
-// to the nearest earlier unit of the image (status index >= first) whose
-// value is known; if inheriting, publish that.  Returns the carry into the
-// unit (0 for the image's first).
+// The decoupled look-back of unit `me` (thread 0 alone), qoipp_kernels.cuh:
+// publish the unit's last output `last` if the unit owns it, else
+// "inherit"; walk back; if inheriting, publish the carry found.  Returns
+// the carry into the unit (0 for the image's first).
 __device__ uint32_t look_back(unsigned long long* status, long long me,
                               long long first, bool own, uint32_t last) {
-  atomicExch(status + me, own ? (kValue | last) : kInherit);
-  uint32_t carry = 0;
-  for (long long v = me - 1; v >= first; --v) {
-    unsigned long long st;
-    while ((st = *reinterpret_cast<volatile unsigned long long*>(
-                status + v)) == 0)
-      __nanosleep(64);
-    if (st >= kValue) {
-      carry = static_cast<uint32_t>(st);
-      break;
-    }
-  }
-  if (!own) atomicExch(status + me, kValue | carry);
+  qk::publish(status, me, own, last);
+  const uint32_t carry = qk::walk_back(status, me, first);
+  if (!own) qk::publish(status, me, true, carry);
   return carry;
 }
 
@@ -439,7 +425,7 @@ place_grouped_kernel(const int32_t* __restrict__ pb,
   uint32_t* lo = reinterpret_cast<uint32_t*>(raw);  // then the word
   uint32_t* hi = lo + step;
   uint8_t* flag = reinterpret_cast<uint8_t*>(hi + step);
-  if (threadIdx.x == 0) ticket = atomicAdd(status + total, 1ull);
+  if (threadIdx.x == 0) ticket = qk::take_ticket(status, total);
   uint4* z = reinterpret_cast<uint4*>(raw);
   for (int i = threadIdx.x; i < 9 * step / 16; i += kThreads)
     z[i] = make_uint4(0, 0, 0, 0);

@@ -24,4 +24,44 @@ __device__ __forceinline__ uint32_t hash6(uint32_t v) {
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// The decoupled look-back of the windowed placements (K2, E2-E6), which
+// carries each window's (or unit's) last output into the next.  A launch
+// owns `units` 64-bit status words, zeroed before it, one per unit in
+// (image, unit) order, and then the ticket counter.  A block takes its unit
+// from the ticket, so it only ever waits on units with lower tickets, which
+// are already running.  A status word is 0 until published, then kInherit
+// (the unit's last pixel takes its carry) or kValue | the unit's last
+// output.
+constexpr unsigned long long kInherit = 1ull << 32;
+constexpr unsigned long long kValue = 2ull << 32;
+
+// The unit this block works on (thread 0 alone).
+__device__ __forceinline__ long long take_ticket(unsigned long long* status,
+                                                 long long units) {
+  return static_cast<long long>(atomicAdd(status + units, 1ull));
+}
+
+// Publish unit `me`'s last output `last` if the unit owns it, else
+// "inherit".
+__device__ __forceinline__ void publish(unsigned long long* status,
+                                        long long me, bool own,
+                                        uint32_t last) {
+  atomicExch(status + me, own ? (kValue | last) : kInherit);
+}
+
+// The carry into unit `me` (thread 0 alone): the last output of the
+// nearest earlier unit of its image (status index >= first) whose value is
+// known, 0 if none.  An inheriting unit then publishes what this returns.
+__device__ inline uint32_t walk_back(unsigned long long* status,
+                                     long long me, long long first) {
+  for (long long v = me - 1; v >= first; --v) {
+    unsigned long long st;
+    while ((st = *reinterpret_cast<volatile unsigned long long*>(
+                status + v)) == 0)
+      __nanosleep(32);
+    if (st >= kValue) return static_cast<uint32_t>(st);
+  }
+  return 0u;
+}
+
 }  // namespace qk

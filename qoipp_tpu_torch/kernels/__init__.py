@@ -49,8 +49,8 @@ _SIGNATURES = {
     "qk_replay": [_P] * 7 + [_L, _I] + [_L] * 4 + [_P],
     # qk_replay's pointers, pupd, swr, C, B, strides, stream
     "qk_replay_summary": [_P] * 9 + [_L, _I] + [_L] * 4 + [_P],
-    # pb, emits, out, B, Q, n_cap, stream
-    "qk_place_fill": [_P, _P, _P, _I, _L, _L, _P],
+    # pb, emits, out, status, B, Q, n_cap, stream
+    "qk_place_fill": [_P] * 4 + [_I, _L, _L, _P],
     # keep, gidx, nplanes, in0..in3, out0..out3, B, N, cap, stream
     "qk_compact": [_P, _P, _I] + [_P] * 8 + [_I, _L, _L, _P],
     # off, tlo, thn, out, B, C, out_cap, stream
@@ -58,8 +58,8 @@ _SIGNATURES = {
     # words, out, B, n, stream
     "qk_logfill": [_P, _P, _I, _L, _P],
     # packed, n_px, prev_in, run_in, seen_in, tlo, thn, run_out, seen_out,
-    # B, Nb, channels, stream
-    "qk_fields": [_P] * 9 + [_I, _L, _I, _P],
+    # summary, B, Nb, channels, seg_tiles, stream
+    "qk_fields": [_P] * 10 + [_I, _L, _I, _I, _P],
     # pb, emits, base, out, status, B, Q, n_cap, (lanes | ns), stream
     "qk_place_wide": [_P] * 5 + [_I, _L, _L, _I, _P],
     "qk_place_narrow": [_P] * 5 + [_I, _L, _L, _I, _P],

@@ -11,8 +11,15 @@ bit-exact.  The cases:
               (chunk-major and lane-major): random rows, palette rows
               whose IDX rows read the slots the two rows before wrote, a
               reset mid-tile, ADD-only and state-free lanes;
-  place_fill: lanes whose offsets run past n_cap (rows with pb >= n_cap),
-              lanes that end inside it, a lane whose first offset is > 0;
+  place_fill (the whole output): lanes whose offsets run past n_cap (rows
+              with pb >= n_cap), lanes that end inside it, a lane whose
+              first offset is > 0; and place_fill_cases: 24 windows an
+              image over 1.1 M rows (three search rounds), five rows a
+              pixel (a window's rows span 20 tiles), an image that stops
+              after three windows (an empty tail of 21), chunks of up to
+              120 pixels (pixels left to the carry inside windows), 96
+              split lanes of 12,289 rows with pb = n_cap after a lane's
+              budget;
   compact:    empty, full and random keep masks, one to four planes;
   emit:       encoder-shaped rows, a lane of 6-byte rows across every
               8192-byte window edge and past out_cap;
@@ -29,6 +36,14 @@ bit-exact.  The cases:
               carried runs of 61 and 30 entering at position 0, n_px
               ending mid-tile and n_px = 1, alpha flips, a one-colour row,
               a ragged last tile, every row with its own n_px and carry;
+              and fields_segments at every FIELDS_SEGMENT_SHAPES (B 1, 3
+              and 16, one tile to 2^18 pixels), segment edges at every
+              multiple of 4,096 pixels: a run over two edges that an
+              INDEX hit on a slot written only two segments before ends
+              with a flush, RUN-62 hits on the last pixel before an edge
+              and on the first after one, n_px at the row's end, inside
+              the last segment, before the second segment and 0, random
+              non-start carries;
   place_wide, place_fill2, place_fill_narrow, place_variant (E2, E3, E5,
               E6; the whole output): B = 4 and B = 1, Q not a multiple of
               the rows staged per step (nor of 128 for E2 and E5), runs of
@@ -63,6 +78,11 @@ from ..ops import (compact_kernel, emit_kernel, emit_window, fields_kernel,
 from ..ops.bitops import hash6
 
 REPLAY_TILE = 1024  # rows a tile of csrc/replay.cu (kTile)
+# (B, Nb) of fields_segments: one tile to 2^18 pixels at B 1, 3 and 16
+FIELDS_SEGMENT_SHAPES = ((1, 1024), (1, 3 * 1024 + 64), (1, 1 << 18),
+                         (3, 1024), (3, 1 << 16), (16, 5 * 1024 + 64),
+                         (16, 1 << 16))
+H100_SMS = 132  # the SM count fields_segments assumes off the card
 # largest |kernel - plain| each kernel may show (0 where not listed): E9's
 # float32 sums, for the order in which duplicates add
 TOLERANCE = {"onehot_place": 1e-6}
@@ -161,8 +181,41 @@ def _place_fill(device) -> int:
     pb = np.cumsum(produced, axis=1) - produced
     pb[4] += 100  # pixels before the first offset read 0
     args = (_t(pb.astype(np.int32), device), _t(_words(rng, (b, q)), device))
-    return max_abs_err(place_kernel.place_fill(*args, n_cap),
-                       place_kernel.place_fill_reference(*args, n_cap))
+    err = max_abs_err(place_kernel.place_fill(*args, n_cap),
+                      place_kernel.place_fill_reference(*args, n_cap))
+    return max([err] + [max_abs_err(place_kernel.place_fill(pb, em, n_cap),
+                                    place_kernel.place_fill_reference(
+                                        pb, em, n_cap))
+                        for pb, em, n_cap in place_fill_cases(rng, device)])
+
+
+def place_fill_cases(rng, device):
+    """[(pb, emits, n_cap)] of K2 across many blocks: B = 3 images of 24
+    windows over 1.1 M rows (image 0 five rows a pixel, past n_cap; image
+    1 stops after three windows; image 2 chunks of up to 120 pixels, so
+    pixels 64 and on of a chunk take the carry), and 96 split lanes of
+    12,289 rows over 3 windows (a first pb > 0 in lane 0, runs of 62, and
+    pb = n_cap after each lane's budget)."""
+    win = place_kernel.WIN
+    q, n_cap = 1_100_000, 24 * win
+    produced = np.zeros((3, q), np.int64)
+    produced[0, ::5] = 1
+    produced[1, :400] = 62
+    produced[2] = np.where(rng.random(q) < 0.05, rng.integers(1, 121, q), 0)
+    pb = np.cumsum(produced, axis=1) - produced
+    cases = [(pb, n_cap)]
+    lanes, q = 96, 12_289
+    produced = np.where(rng.random((lanes, q)) < 0.5,
+                        rng.integers(1, 63, (lanes, q)), 0)
+    produced[1::7, ::3] = 62
+    pb = np.cumsum(produced, axis=1) - produced
+    pb[0] += 100
+    n_cap = 3 * win
+    budget = rng.integers(0, n_cap, lanes)
+    pb = np.where(pb < budget[:, None], pb, n_cap)
+    cases.append((pb, n_cap))
+    return [(_t(p.astype(np.int32), device), _t(_words(rng, p.shape), device),
+             n) for p, n in cases]
 
 
 def _compact(device) -> int:
@@ -311,14 +364,61 @@ def _fields(device) -> int:
     px[7] = prev[7]
     args = [_t(x, device) for x in (px, n_px.astype(np.int32), prev,
                                     run.astype(np.int32), seen)]
-    err = 0
-    for channels in (3, 4):
-        got = fields_kernel.encode_fields_planes(args[0], args[1], channels,
-                                                 *args[2:])
-        want = fields_kernel.encode_fields_planes_reference(
-            args[0], args[1], channels, *args[2:])
-        err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
-    return err
+    err = max(_fields_err(args, channels) for channels in (3, 4))
+    return max([err] + [fields_segments(device, b, nb)
+                        for b, nb in FIELDS_SEGMENT_SHAPES])
+
+
+def _fields_err(args, channels) -> int:
+    got = fields_kernel.encode_fields_planes(args[0], args[1], channels,
+                                             *args[2:])
+    want = fields_kernel.encode_fields_planes_reference(
+        args[0], args[1], channels, *args[2:])
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+def fields_edge(device, b: int, nb: int) -> int:
+    """The pixels a segment of E1's cut of B rows of nb pixels
+    (fields_kernel.segments) on the card of ``device``; off the card, on
+    an H100's H100_SMS SMs."""
+    device = torch.device(device)
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return fields_kernel.segments(b, nb, sms)[0] * fields_kernel.SEG_TILE
+
+
+def fields_segments(device, b: int, nb: int) -> int:
+    """Max |E1 - plain| (RGB and RGBA) on B rows of nb pixels built around
+    the segment edges of E1's cut on this card (fields_edge, e pixels
+    apart): pixel 99 a fresh word
+    P, then one colour over the first two edges, then P again (an INDEX
+    hit on a slot last written two segments back, after a flush); at each
+    later edge, a streak whose 62nd pixel is the last before the edge or
+    the first after it, in turn.  n_px: the whole row, 517 short of it,
+    before the second segment, and 0, in turn; random non-start carries."""
+    rng = np.random.default_rng(b * 7 + nb)
+    e = fields_edge(device, b, nb)
+    px = np.stack([mixed_pixels(rng, nb) for _ in range(b)])
+    if nb >= 2 * e + 200:
+        for i in range(b):
+            p = _words(rng, 1)[0] | np.uint32(0xFF000000)
+            c = p ^ np.uint32(0x00010203)
+            while int(hash6(_t(np.array([c, p]), "cpu")).unique().numel()) < 2:
+                c = c ^ np.uint32(0x00000100)
+            px[i, 99] = p
+            px[i, 100 : 2 * e + 5] = c
+            px[i, 2 * e + 5] = p
+        for j, at in enumerate(range(3 * e, nb - 200, e)):
+            s = at - 62 if j % 2 == 0 else at - 61  # the 62nd at at-1 or at
+            px[:, s - 1] = px[:, s - 2] ^ np.uint32(0x00030201)  # a break
+            px[:, s : s + 62] = px[:, s - 1 : s]
+            px[:, s + 62] = px[:, s - 1] ^ np.uint32(0x00050505)
+    n_px = np.array([[nb, nb - 517, e - 300, 0][i % 4] for i in range(b)])
+    args = [_t(x, device) for x in (
+        px, np.clip(n_px, 0, nb).astype(np.int32),
+        _words(rng, b) | np.uint32(0xFF000000),
+        rng.integers(0, 62, b).astype(np.int32), _words(rng, (64, b)))]
+    return max(_fields_err(args, channels) for channels in (3, 4))
 
 
 def _window_cases(rng, q, device):
@@ -327,7 +427,7 @@ def _window_cases(rng, q, device):
     of three empty windows, image 2 has a 62-pixel run over the first
     window edge, image 3 starts at pixel 100 with long runs of equal pb),
     and B = 1 at n_cap = 2 WIN."""
-    win = place_window.WIN
+    win = place_kernel.WIN
     produced = np.zeros((4, q), np.int64)
     start = rng.random((4, q))
     produced[0] = np.where(start[0] < 0.6, rng.integers(1, 40, q), 0)
@@ -349,7 +449,7 @@ def _windowed(rng, q, device, call, n_fill=6, place=True):
     """Max |wrapper - plain| over the windowed cases; call(pb, emits, n_cap)
     runs the wrapper."""
     return max(max_abs_err(call(pb, em, n_cap),
-                           place_window.windowed_place_reference(
+                           place_kernel.place_fill_reference(
                                pb, em, n_cap, n_fill, place))
                for pb, em, n_cap in _window_cases(rng, q, device))
 

@@ -20,6 +20,9 @@ from .encode import (TAG_RUN, TILE, _last_same_hash_value, op_bytes,
                      pack_templates)
 
 BLK = 2048  # pixels per run_out entry (E1's grid block)
+SEG_TILE = 1024  # csrc/fields.cu kThreads: pixels per tile, one per thread
+SUM_COLS = 65  # csrc/fields.cu kSumCols: summary words per segment
+BLOCKS_PER_SM = 2  # the grid E1 aims at: two blocks of 1024 threads an SM
 
 
 def start_state(b: int, device=None):
@@ -30,6 +33,17 @@ def start_state(b: int, device=None):
                        device=device),
             torch.zeros(b, dtype=torch.int32, device=device),
             torch.zeros((64, b), dtype=torch.int32, device=device))
+
+
+def segments(b: int, nb: int, sms: int):
+    """(seg_tiles, nseg): how the kernel cuts rows of nb pixels, B at a
+    time, on a card of ``sms`` SMs: into nseg segments of seg_tiles whole
+    tiles of SEG_TILE pixels (the last may be short), as few tiles a
+    segment as give the grid about BLOCKS_PER_SM blocks an SM."""
+    tiles = -(-nb // SEG_TILE)
+    per_row = min(tiles, max(1, -(-BLOCKS_PER_SM * sms // b)))
+    seg_tiles = -(-tiles // per_row)
+    return seg_tiles, -(-tiles // seg_tiles)
 
 
 def encode_fields_planes_reference(packed, n_px, channels: int, prev_in,
@@ -93,7 +107,8 @@ def encode_fields_planes(packed, n_px, channels: int, prev_in=None,
     none; at the block of pixel n_px - 1 it is the row's trailing run),
     seen_out the table after the row's last valid pixel.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    each row cut as ``segments`` says."""
     b, nb = packed.shape
     dev = packed.device
     if prev_in is None or run_in is None or seen_in is None:
@@ -117,9 +132,14 @@ def encode_fields_planes(packed, n_px, channels: int, prev_in=None,
     run_out = torch.empty((b, -(-nb // BLK)), dtype=torch.int32, device=dev)
     seen_out = torch.empty_like(seen_in)
     if b and nb:
+        seg_tiles, nseg = segments(
+            b, nb, torch.cuda.get_device_properties(dev).multi_processor_count)
+        summary = torch.empty((b, nseg - 1, SUM_COLS), dtype=torch.int32,
+                              device=dev)
         kernels.launch(
             "fields", "qk_fields", dev, packed.data_ptr(), n_px.data_ptr(),
             prev_in.data_ptr(), run_in.data_ptr(), seen_in.data_ptr(),
             tlo.data_ptr(), thn.data_ptr(), run_out.data_ptr(),
-            seen_out.data_ptr(), b, nb, channels)
+            seen_out.data_ptr(), summary.data_ptr(), b, nb, channels,
+            seg_tiles)
     return tlo, thn, run_out, seen_out

@@ -10,9 +10,7 @@ writer at or to its left in the same window, at most 2**n_fill - 1 away;
 any other pixel takes the carry, the previous window's last output (0 in
 the first window).  With place=False (E6's ``do_slabs=False``) nothing
 writes and every pixel reads 0.  With n_fill=6 this is the JAX K2's
-whole output; it equals the port's K2 (ops/place_kernel.py) up to each
-image's last chunk start, and may differ past it, where K2 repeats the
-last row.
+whole output, and the function of the port's K2 (ops/place_kernel.py).
 
 Each wrapper keeps its experiment's signature and asserts.  CPU tensors
 take the plain version; CUDA tensors launch the experiment's kernel,
@@ -21,6 +19,10 @@ window_base_rows_w for E2) names, and raises on any failure.  Words are
 int32 tensors holding the uint32 bits.  Knobs that only shaped the TPU
 kernel (E2's ``hoist``, E6's ``prec``) are accepted and launch the same
 kernel.
+
+The plain version is K2's, place_fill_reference, which with the defaults
+is the JAX K2's whole output; it and WIN and ``writers`` live in
+ops/place_kernel.py.
 
 E4 (``benchmarks/expt_place.py``) computes another function, the
 **grouped summed placement** (summed_place_reference): rows that share a
@@ -33,8 +35,8 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .place_kernel import WIN, fill_units, place_fill_reference, writers
 
-WIN = 8192  # pixels per placement window
 SW = WIN // 128  # 128-pixel stripes per window
 SLAB = 128  # candidate rows per base_step unit
 WIDE_LANES = (128, 256, 512)  # E2's candidate widths
@@ -86,56 +88,6 @@ def _require(ok: bool, what: str) -> None:
         raise ValueError(what)
 
 
-def writers(pb, n_cap: int):
-    """(nxt, writes), both (B, Q): each row's next pb (n_cap after the
-    last row) and whether the row writes (nxt > pb, 0 <= pb < n_cap)."""
-    nxt = torch.cat([pb[:, 1:], torch.full_like(pb[:, :1], n_cap)], dim=1)
-    return nxt, (nxt > pb) & (pb >= 0) & (pb < n_cap)
-
-
-def windowed_place_reference(pb, emits, n_cap: int, n_fill: int = 6,
-                             place: bool = True):
-    """Plain version of E2, E3, E5 and E6: the windowed placement of the
-    module docstring.  pb, emits (B, Q) int32 -> (B, n_cap) int32."""
-    _require(n_cap % WIN == 0, f"n_cap {n_cap} is not a multiple of {WIN}")
-    b, q = pb.shape
-    dev = pb.device
-    pos = torch.full((b, n_cap), -1, dtype=torch.int32, device=dev)
-    val = torch.zeros((b, n_cap), dtype=torch.int32, device=dev)
-    if place and q:
-        bi, ri = torch.nonzero(writers(pb, n_cap)[1], as_tuple=True)
-        at = pb[bi, ri].long()
-        pos[bi, at] = at.to(torch.int32)
-        val[bi, at] = emits[bi, ri]
-    return _fill(pos, val, WIN, (1 << n_fill) - 1)
-
-
-def _fill(pos, val, unit: int, reach: int):
-    """pos (B, n) int32: a pixel's own index where it is placed, else -1;
-    val its word.  Each pixel takes the word of the nearest placed pixel at
-    or to its left in its unit of ``unit`` pixels, at most ``reach`` away;
-    any other pixel the carry, the previous unit's last output (0 in the
-    first unit of each image).  Returns (B, n) int32."""
-    b, n = pos.shape
-    dev = pos.device
-    nunit = n // unit
-    near = torch.cummax(pos.view(b, nunit, unit), dim=2).values.view(b, n)
-    px = torch.arange(n, dtype=torch.int32, device=dev)
-    owned = (near >= 0) & (px - near <= reach)
-    local = torch.gather(val, 1, near.clamp(min=0).long())
-    # the carry into unit u: the last output of the nearest earlier unit
-    # whose last pixel is its own, else 0
-    last_owned = owned[:, unit - 1 :: unit]
-    last_val = local[:, unit - 1 :: unit]
-    u = torch.arange(nunit, dtype=torch.int32, device=dev)
-    owner = torch.cummax(torch.where(last_owned, u, -1), dim=1).values
-    src = torch.cat([torch.full((b, 1), -1, dtype=torch.int32, device=dev),
-                     owner[:, :-1]], dim=1)
-    carry = torch.where(src >= 0, torch.gather(last_val, 1,
-                                               src.clamp(min=0).long()), 0)
-    return torch.where(owned, local, carry.repeat_interleave(unit, dim=1))
-
-
 def _grouped_checks(n_cap: int, win: int, g: int) -> int:
     """E4's asserts; returns the step, win * g pixels."""
     _require(win > 0 and win % 128 == 0,
@@ -178,7 +130,7 @@ def summed_place_reference(pb, emits, n_cap: int, win: int = WIN,
     placed.scatter_(1, at, True)
     px = torch.arange(n_cap, dtype=torch.int32, device=dev)
     pos = torch.where(placed[:, :n_cap], px, -1)
-    return _fill(pos, word, step, REACH)
+    return fill_units(pos, word, step, REACH)
 
 
 def _launch(name, entry, pb, emits, base_step, n_cap, units_per_image,
@@ -222,7 +174,7 @@ def place_wide(pb, emits, base_step, n_cap: int, lanes: int = 256,
     _require(lanes in WIDE_LANES,
              f"lanes must be one of {WIDE_LANES}, got {lanes}")
     if pb.device.type == "cpu":
-        return windowed_place_reference(pb, emits, n_cap)
+        return place_fill_reference(pb, emits, n_cap)
     return _launch("place_wide", "qk_place_wide", pb, emits, base_step,
                    n_cap, n_cap // WIN, lanes)
 
@@ -238,7 +190,7 @@ def place_fill2(pb, emits, base_step, n_cap: int):
     _require(tuple(base_step.shape) == (b, n_cap // WIN + 1),
              f"base_step shape {tuple(base_step.shape)}")
     if pb.device.type == "cpu":
-        return windowed_place_reference(pb, emits, n_cap)
+        return place_fill_reference(pb, emits, n_cap)
     return _launch("place_fill2", "qk_place_fill2", pb, emits, base_step,
                    n_cap, n_cap // (2 * WIN))
 
@@ -250,7 +202,7 @@ def place_fill_narrow(pb, emits, base_step, n_cap: int, ns: int = 4):
     base_step from window_base_rows.  Returns (B, n_cap) int32."""
     _require(1 <= ns <= SW, f"ns must be in 1..{SW}, got {ns}")
     if pb.device.type == "cpu":
-        return windowed_place_reference(pb, emits, n_cap)
+        return place_fill_reference(pb, emits, n_cap)
     return _launch("place_fill_narrow", "qk_place_narrow", pb, emits,
                    base_step, n_cap, n_cap // WIN, ns)
 
@@ -270,7 +222,7 @@ def place_variant(pb, emits, base_step, n_cap: int, do_dma: bool = True,
     _require(do_dma or not do_slabs,
              "do_slabs without do_dma places rows that were never read")
     if pb.device.type == "cpu":
-        return windowed_place_reference(pb, emits, n_cap, n_fill, do_slabs)
+        return place_fill_reference(pb, emits, n_cap, n_fill, do_slabs)
     return _launch("place_variant", "qk_place_variant", pb, emits, base_step,
                    n_cap, n_cap // WIN, int(do_dma), int(do_slabs), n_fill)
 

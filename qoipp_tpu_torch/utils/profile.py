@@ -42,7 +42,7 @@ GROUPS = (
     ("K3 compact", "compact_kernel"),
     ("K4 emit", "emit_kernel"),
     ("K6 logfill", "logfill"),
-    ("E1 fields", "fields_kernel"),
+    ("E1 fields", "fields_"),  # fields_kernel, fields_summary_kernel
     ("copies", "memcpy"),
     ("fills", "memset"),
     ("scans (cumsum, cummax)", "scan"),

@@ -2,12 +2,13 @@
 PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
 chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
 one-shot codec and the streaming codec at a small size against the port's
-oracle, and the experiment scripts (E2-E7, and E8/E9 in profile_r2) at a
-small size; and K1 and K5 against their plain versions on the whole output
-over no rows and tile-edge row counts, lane counts, both row layouts and
-one-class, reset, random and palette rows; and the latency probe behind
-the replay chain bound against its plain loop.  Without a CUDA device
-every test here skips.
+oracle, K2 and E1 across many blocks (selfcheck.place_fill_cases and
+fields_segments), and the experiment scripts (E2-E7, and E8/E9 in
+profile_r2) at a small size; and K1 and K5 against their plain versions
+on the whole output over no rows and tile-edge row counts, lane counts,
+both row layouts and one-class, reset, random and palette rows; and the
+latency probe behind the replay chain bound against its plain loop.
+Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
 
@@ -39,6 +40,37 @@ def test_kernel_matches_plain_version(cuda, name):
     before = kernels.launch_counts()[name]
     assert selfcheck.check(name, cuda) <= selfcheck.TOLERANCE.get(name, 0)
     assert kernels.launch_counts()[name] > before
+
+
+def test_place_fill_windows_match_plain_version(cuda):
+    """K2 on the whole output across many blocks: 24 windows an image over
+    1.1 M rows, an empty tail of 21 windows, pixels left to the carry
+    inside windows, and 96 split lanes of 12,289 rows."""
+    from qoipp_tpu_torch.ops import place_kernel
+
+    before = kernels.launch_counts()["place_fill"]
+    cases = selfcheck.place_fill_cases(np.random.default_rng(12), cuda)
+    for pb, emits, n_cap in cases:
+        got = place_kernel.place_fill(pb, emits, n_cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, place_kernel.place_fill_reference(
+            pb, emits, n_cap))
+    assert kernels.launch_counts()["place_fill"] == before + len(cases)
+
+
+@pytest.mark.parametrize("b,nb", selfcheck.FIELDS_SEGMENT_SHAPES)
+def test_fields_segments_match_plain_version(cuda, b, nb):
+    """E1 on rows cut into segments (fields_kernel.segments on this card):
+    runs, RUN-62 hits and a table slot across segment edges, n_px inside
+    and before segments, non-start carries; RGB and RGBA."""
+    from qoipp_tpu_torch.ops import fields_kernel
+
+    before = kernels.launch_counts()["fields"]
+    assert selfcheck.fields_segments(cuda, b, nb) == 0
+    assert kernels.launch_counts()["fields"] == before + 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    seg_tiles, nseg = fields_kernel.segments(b, nb, sms)
+    assert nseg * seg_tiles * 1024 >= nb > (nseg - 1) * seg_tiles * 1024
 
 
 REPLAY_TILE = selfcheck.REPLAY_TILE
@@ -256,6 +288,8 @@ def test_wrapper_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         place_kernel.place_fill(pb.to(torch.int32).T.contiguous().T, emits,
                                 8192)
+    with pytest.raises(ValueError, match="multiple"):
+        place_kernel.place_fill(pb.to(torch.int32), emits, 8000)
 
 
 def test_dep_chain_matches_plain_version(cuda):

@@ -20,6 +20,7 @@ from qoipp_tpu.ops import place_kernel as jpk
 from qoipp_tpu.ops import replay_kernel as jrk
 from qoipp_tpu_torch import convert
 from qoipp_tpu_torch.convert import words_to_numpy
+from qoipp_tpu_torch.kernels import selfcheck
 from qoipp_tpu_torch.kernels.selfcheck import mixed_pixels
 from qoipp_tpu_torch.ops import compact_kernel, emit_kernel, fields_kernel
 from qoipp_tpu_torch.ops import place_kernel, replay_kernel
@@ -145,22 +146,70 @@ def _pix_before(rng, b, q, mean_px):
     return (np.cumsum(produced, axis=1) - produced).astype(np.int32)
 
 
+def _jax_place_fill(pb, emits, n_cap):
+    """The JAX K2's whole output; Q padded to 128 rows with pb = n_cap,
+    which never write, as its wrapper requires."""
+    pad = (-pb.shape[1]) % 128
+    pb = np.pad(pb, ((0, 0), (0, pad)), constant_values=n_cap)
+    emits = np.pad(emits, ((0, 0), (0, pad)))
+    return _np(jpk.place_fill(jnp.asarray(pb), jnp.asarray(emits),
+                              jpk.window_base_rows(jnp.asarray(pb), n_cap),
+                              n_cap))
+
+
 def test_place_fill():
     rng = np.random.default_rng(5)
     b, q, n_cap = 4, 1024, 2 * place_kernel.WIN
     pb = np.concatenate([_pix_before(rng, 2, q, 30),  # overflows n_cap
                          _pix_before(rng, 2, q, 4)])  # ends inside it
     emits = _words(rng, (b, q))
-    want = jpk.place_fill(jnp.asarray(pb), jnp.asarray(emits),
-                          jpk.window_base_rows(jnp.asarray(pb), n_cap), n_cap)
+    want = _jax_place_fill(pb, emits, n_cap)
     got = place_kernel.place_fill(torch.from_numpy(pb), words_to_torch(emits),
                                   n_cap)
     assert got.shape == (b, n_cap)
     assert (pb[:2, -1] >= n_cap).all() and (pb[2:, -1] < n_cap).all()
-    want, got = _np(want), words_to_numpy(got)
-    for i in range(b):
-        covered = min(int(pb[i, -1]) + 1, n_cap)
-        assert np.array_equal(want[i, :covered], got[i, :covered]), i
+    assert np.array_equal(want, words_to_numpy(got))  # the whole output
+
+
+def _place_case(name, rng):
+    """(pb, n_cap) of one K2 edge case, B = 3."""
+    win = place_kernel.WIN
+    if name == "past_n_cap":  # most rows at pb >= n_cap, runs of 62
+        produced = np.where(rng.random((3, 900)) < 0.7, 62, 0)
+        n_cap = win
+    elif name == "empty_tail":  # images stop after 1, 700 and 9000 pixels
+        produced = np.zeros((3, 700), np.int64)
+        produced[0, 0], produced[1, :700] = 1, 1
+        produced[2, :300] = 30
+        n_cap = 5 * win
+    elif name == "window_edge":  # 62-pixel runs over each window edge
+        produced = rng.integers(0, 3, (3, 3000))
+        for i in range(3):
+            at = np.searchsorted(np.cumsum(produced[i]), win - 20 * i) - 1
+            produced[i, at : at + 3] = 62
+        n_cap = 2 * win
+    else:  # split lane rows: Q not a multiple of 128, a first pb > 0, a
+        # lane whose budget ends early and rows of pb = n_cap after it
+        produced = np.where(rng.random((3, 1000)) < 0.5,
+                            rng.integers(1, 63, (3, 1000)), 0)
+        n_cap = 3 * win
+    pb = (np.cumsum(produced, axis=1) - produced).astype(np.int32)
+    if name == "lane_rows":
+        pb[0] += 100
+        pb[2, 600:] = n_cap
+    return pb, n_cap
+
+
+@pytest.mark.parametrize("name", ["past_n_cap", "empty_tail", "window_edge",
+                                  "lane_rows"])
+def test_place_fill_edge_cases(name):
+    rng = np.random.default_rng(len(name))
+    pb, n_cap = _place_case(name, rng)
+    emits = _words(rng, pb.shape)
+    got = place_kernel.place_fill(torch.from_numpy(pb), words_to_torch(emits),
+                                  n_cap)
+    assert np.array_equal(_jax_place_fill(pb, emits, n_cap),
+                          words_to_numpy(got))
 
 
 @pytest.mark.parametrize("density", [0.0, 0.03, 0.4, 1.0])
@@ -371,3 +420,15 @@ def test_fields_planes_match_encode_fields_with_carries(channels):
         assert run_out[i, (n - 1) // fields_kernel.BLK] == trail
         assert np.array_equal(seen_out[:, i],
                               _seen_after(px[i], n, prev[i], seen[i]))
+
+
+@pytest.mark.parametrize("b,nb", selfcheck.FIELDS_SEGMENT_SHAPES)
+def test_fields_selfcheck_edges_are_segment_edges(b, nb):
+    # the card check's crafted runs, RUN-62 hits and table slot sit at
+    # multiples of fields_edge: that is E1's segment length at this shape
+    # on an H100, and every cut into more than one segment gets them
+    e = selfcheck.fields_edge("cpu", b, nb)
+    seg_tiles, nseg = fields_kernel.segments(b, nb, selfcheck.H100_SMS)
+    assert e == seg_tiles * fields_kernel.SEG_TILE
+    assert nseg == 1 or nb >= 2 * e + 200
+    assert nseg > 1 or e >= nb

@@ -271,6 +271,8 @@ def test_profile_grouping_and_busy_union():
                             "<4, ...>") == "torch elementwise"
     assert profile.group_of("void (anonymous namespace)::fields_kernel("
                             "unsigned int const*)") == "E1 fields"
+    assert profile.group_of("void (anonymous namespace)::fields_summary_"
+                            "kernel(unsigned int const*)") == "E1 fields"
     assert profile.group_of("void (anonymous namespace)::place_fill_kernel("
                             "int const*)") == "K2 place_fill"
     assert profile.group_of("void (anonymous namespace)::place_fill2_kernel("

@@ -66,6 +66,16 @@ def test_corpus_decode(corpus):
     _check_decode(desc, blobs, pipe, jpipe)
 
 
+def test_corpus_decode_whole_output(corpus):
+    # past n_px too: K2's tail is the JAX package's
+    _, _, blobs, pipe, jpipe = corpus
+    streams, sizes = pipe.pack_streams(blobs)
+    got = words_to_numpy(pipe.decode_packed(streams, sizes))
+    want = np.asarray(jpipe.decode_packed(jnp.asarray(streams),
+                                          jnp.asarray(sizes)))
+    assert pipe.n_cap > pipe.n_px and np.array_equal(got, want)
+
+
 def test_corpus_encode(corpus):
     desc, raws, blobs, pipe, jpipe = corpus
     raw = np.stack(raws)

@@ -30,6 +30,7 @@ from qoipp_tpu_torch.benchmarks import (expt_place, expt_place2,
                                         expt_place_fixed, expt_place_narrow,
                                         expt_place_wide)
 from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.ops import place_kernel
 from qoipp_tpu_torch.ops import place_window as PW
 
 torch.set_num_threads(1)
@@ -150,7 +151,7 @@ def test_windowed_reference_is_the_jax_k2_whole_output():
     assert pb[0, -1] >= n_cap and pb[2, -1] < 4 * PW.WIN
     want = jpk.place_fill(jnp.asarray(pb), jnp.asarray(emits),
                           jpk.window_base_rows(jnp.asarray(pb), n_cap), n_cap)
-    got = PW.windowed_place_reference(*_port(pb, emits), n_cap)
+    got = place_kernel.place_fill_reference(*_port(pb, emits), n_cap)
     _same(want, got)
 
 
@@ -310,7 +311,8 @@ def test_place_grouped_adds_duplicates_where_k2_keeps_the_last():
     assert got[0, 4] == 7 and got[0, 5] == 0x10006 and got[0, 68] == 0x10006
     assert got[0, 69] == 0  # past the reach of 63: the carry, 0 in step 0
     assert got[0, 100] == 9
-    last = words_to_numpy(PW.windowed_place_reference(pb, emits, PW.WIN))
+    last = words_to_numpy(place_kernel.place_fill_reference(pb, emits,
+                                                           PW.WIN))
     assert last[0, 5] == 0x00030003  # K2's rule: the run's last row
 
 
