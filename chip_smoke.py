@@ -51,11 +51,14 @@
    the batch and the split path's whole output and E1 at both
    stream-encode shapes and, logged only, at 8 batch RGB images, each
    also in device time (torch.profiler) and beside its first build's
-   time; K1 and K5 on the first and on the last 4,096 rows, the last from
-   the kernel's own carry, timed beside the first build's time and their
-   chain bound: the longest chain of dependent operations the function
-   needs on those rows, at the dependent-issue latency and SM clock the
-   card shows in the same run), runs the replay class probe
+   time; K3 as the whole compact_rows call (device time by kernel group,
+   beside its first build's time) and K6 also in device time, both with
+   their launch configuration and ptxas report; K1 and K5 on the first
+   and on the last 4,096 rows, the last from the kernel's own carry,
+   timed beside the first build's time and their chain bound: the
+   longest chain of dependent operations the function needs on those
+   rows, at the dependent-issue latency and SM clock the card shows in
+   the same run), runs the replay class probe
    (benchmarks/replay_probe: K1 at 16 x 277,888 rows and K5 at 96 x
    12,288 on all-NOP, all-SETA, all-ADD and all-IDX rows and the cells'
    own, in ns a row), then times every path (1 cold, 3 warmup, 5 timed
@@ -120,10 +123,12 @@ SPLIT_LANES = 96  # SplitDecoder's serving default
 PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs 0.2-0.4 ms per row
 # the kernels as first built, ms a call at the shapes phase 5 times, on an
 # H100 80GB HBM3 at 700 W (PERF.md §6): K1 and K5 one thread a lane, 32
-# lanes a block; K2 a binary search a pixel; E1 one block a row
+# lanes a block; K2 a binary search a pixel; E1 one block a row; K3 (the
+# whole compact_rows call) a torch.cumsum and a scatter a row
 FIRST_BUILD_MS = {"replay": 51.143, "replay_summary": 2.113,
                   "place_fill batch": 1.158, "place_fill split": 0.722,
-                  "fields 1 x 262144": 0.4419, "fields 16 x 65536": 0.1135}
+                  "fields 1 x 262144": 0.4419, "fields 16 x 65536": 0.1135,
+                  "compact": 3.469}
 # dependent instructions from one state row's value to the next in the
 # replay chain thread's loop as built (python -m
 # qoipp_tpu_torch.benchmarks.replay_probe --sass FILE; PERF.md): this
@@ -208,6 +213,15 @@ FIELDS_BATCH = 8  # E1's logged third shape: 8 batch RGB images
 PROBE_RUNS = 5  # timed calls per profile_r2 probe
 
 
+PTXAS = {}  # kernel entry (mangled name) -> ptxas' "Used ..." report
+
+
+def ptxas_of(name):
+    """ptxas' report of the kernels whose entry name holds ``name``."""
+    return "; ".join(v for k, v in PTXAS.items() if name in k) or \
+        "not reported"
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -251,8 +265,14 @@ def phase1_build():
     kernels.library()
     log(f"phase 1: built {kernels.LIB_PATH.name} in "
         f"{time.perf_counter() - t0:.1f} s")
+    entry = None
     for line in report.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Used" in line and entry:
+            PTXAS[entry] = line.split(":", 1)[1].strip()
+            log(f"  ptxas: {entry}: {PTXAS[entry]}")
+        elif "spill" in line:
             log("  ptxas:", line.strip())
     t0 = time.perf_counter()
     oracle.build()
@@ -615,25 +635,11 @@ def phase5_kernels_at_main_shapes(run, launches, card):
 
     packed = run["packed_in"][:8]  # the sub-batch encode_packed_chunked runs
     posflag, keep, fb = enc_ops.chunk_positions(packed, pipe.n_px)
-    args = ((packed, posflag), keep, pipe.chunk_cap)
-    (pk_c, pf_c), counts = compact_kernel.compact_rows(*args)
-    (rk_c, rf_c), rcounts = compact_kernel.compact_rows_reference(*args)
-    live = torch.arange(pipe.chunk_cap, device=counts.device)[None, :] < \
-        counts[:, None]
-    err = max(selfcheck.max_abs_err(counts, rcounts),
-              *(selfcheck.max_abs_err(torch.where(live, g, 0),
-                                      torch.where(live, w, 0))
-                for g, w in ((pk_c, rk_c), (pf_c, rf_c))))
-    expect(err == 0, "compact disagrees with its plain version")
-    ms = timed_ms(lambda: compact_kernel.compact_rows(*args))
-    plain_ms = timed_ms(lambda: compact_kernel.compact_rows_reference(*args))
-    nb, n = keep.shape
-    log(f"phase 5: compact (8 x {n} rows, 2 planes -> "
-        f"{pipe.chunk_cap}): {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    k3, (pk_c, pf_c), counts = _compact_time(packed, posflag, keep,
+                                             pipe.chunk_cap, card)
     rows.append(_kernel_row(
-        "compact", launches["compact"], err, ms, plain_ms,
-        nb * n * (2 * 4 + 1) + nb * pipe.chunk_cap * 2 * 4 + 4 * nb,
-        OPS_PER_ELEMENT["compact"] * nb * n))
+        "compact", launches["compact"], k3.pop("err"), k3.pop("ms"),
+        k3.pop("plain_ms"), k3.pop("bytes"), k3.pop("ops"), **k3))
 
     off, tlo, thn, _ = enc_ops.chunk_templates(pk_c, pf_c, counts, pipe.n_px,
                                                fb, pipe.channels)
@@ -650,6 +656,63 @@ def phase5_kernels_at_main_shapes(run, launches, card):
         12 * off.numel() + off.shape[0] * pipe.out_cap,
         OPS_PER_ELEMENT["emit"] * off.shape[0] * pipe.out_cap))
     return rows
+
+
+def _compact_time(packed, posflag, keep, cap, card):
+    """K3 on batch encode's sub-batch rows against its plain version on
+    counts and the rows below counts, the whole compact_rows call timed
+    (events, and device time by kernel group) beside the plain version
+    and the first build; its launch configuration logged.  The bound
+    counts what the function must move: keep once, each kept row's plane
+    values read and written once, counts; the first build's formula (every
+    plane row read, cap rows written) is logged beside it."""
+    args = ((packed, posflag), keep, cap)
+    (pk_c, pf_c), counts = compact_kernel.compact_rows(*args)
+    (rk_c, rf_c), rcounts = compact_kernel.compact_rows_reference(*args)
+    live = torch.arange(cap, device=counts.device)[None, :] < \
+        counts[:, None]
+    err = max(selfcheck.max_abs_err(counts, rcounts),
+              *(selfcheck.max_abs_err(torch.where(live, g, 0),
+                                      torch.where(live, w, 0))
+                for g, w in ((pk_c, rk_c), (pf_c, rf_c))))
+    expect(err == 0, "compact disagrees with its plain version")
+    call = lambda: compact_kernel.compact_rows(*args)
+    ms = timed_ms(call)
+    prof = profile.profile_path(call, calls=20, warmup=1)
+    expect("K3 compact" in prof["groups"], "the profiler saw no K3 kernel")
+    dev_ms = prof["groups"]["K3 compact"][0]
+    # the same launch with no row kept: keep read, scans and look-back only
+    none_kept = torch.zeros_like(keep)
+    empty_ms = device_ms(
+        lambda: compact_kernel.compact_rows((packed, posflag), none_kept, cap),
+        "K3 compact")
+    plain_ms = timed_ms(lambda: compact_kernel.compact_rows_reference(*args))
+    b, n = keep.shape
+    kept = int(counts.sum())
+    nbytes = b * n + 8 * 2 * kept + 4 * b
+    ops = OPS_PER_ELEMENT["compact"] * b * n
+    bound_s, bound_by = bound(nbytes, ops)
+    old_s, _ = bound(b * n * (2 * 4 + 1) + b * cap * 2 * 4 + 4 * b, ops)
+    tile, threads = compact_kernel.launch_shape()
+    tiles = b * -(-n // tile)
+    first = FIRST_BUILD_MS["compact"]
+    groups = ", ".join(f"{g} {t:.4f} ({k:g})"
+                       for g, (t, k) in prof["groups"].items())
+    log(f"phase 5: compact ({b} x {n} rows, 2 planes -> {cap}; {kept} kept): "
+        f"{ms:.4f} ms (first build {first} ms, {first / ms:.1f}x), device: "
+        f"kernel {dev_ms:.4f} ms, whole call busy {prof['busy_ms']:.4f} ms "
+        f"({groups}), kernel with no row kept {empty_ms:.4f} ms; plain "
+        f"{plain_ms:.3f} ms; bound {bound_s * 1e3:.5f} ms ({bound_by}: "
+        f"keep, the kept rows' values, counts), share "
+        f"{bound_s * 1e3 / dev_ms:.3f} of the kernel; the first build's "
+        f"formula {old_s * 1e3:.5f} ms, share {old_s * 1e3 / dev_ms:.3f}; "
+        f"launch: {tiles} blocks of {threads} threads ({tile} rows a "
+        f"block) and the zeroing of {tiles + 1} "
+        f"status words; ptxas: {ptxas_of('compact_kernel')}; on {card}")
+    return (dict(err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                 device_ms=dev_ms, busy_ms=prof["busy_ms"],
+                 device_ms_none_kept=empty_ms, rows=n, lanes=b, kept=kept,
+                 cap=cap), (pk_c, pf_c), counts)
 
 
 def _place_fill_time(pix_before, emits, n_cap, where, card):
@@ -718,8 +781,9 @@ def phase5_replay_probe(run, sparse, rows, card):
                 for p in probe if p["kernel"] == row["name"]]
 
 
-def phase5_logfill(run, launches, dev):
-    """K6 on the one-shot RGB decode's flagged words."""
+def phase5_logfill(run, launches, dev, card):
+    """K6 on the one-shot RGB decode's flagged words, event and device
+    time; its launch configuration logged."""
     emits, real, produced, pix_before, n_cap = dec_ops.expansion_inputs(
         run["blob"], run["desc"], dev)
     words = dec_ops.flagged_words(emits, real, produced, pix_before, n_cap)
@@ -728,17 +792,27 @@ def phase5_logfill(run, launches, dev):
         replay_kernel.logfill_batch_reference(words))
     expect(err == 0, "logfill disagrees with its plain version")
     ms = timed_ms(lambda: replay_kernel.logfill_batch(words))
+    dev_ms = device_ms(lambda: replay_kernel.logfill_batch(words),
+                       "K6 logfill")
     plain_ms = timed_ms(lambda: replay_kernel.logfill_batch_reference(words))
-    # the search reads back from each word to its nearest flag, at most 64
-    # words: one compare per word read
+    # one compare per word in reach of each word's nearest flag (at most
+    # 64): what a backward search reads
     col = torch.arange(words.shape[1], device=dev)
     last = torch.cummax(torch.where(words < 0, col, -(1 << 20)), 1).values
     reads = int(torch.clamp(col - last + 1, max=64).sum())
     b, n = words.shape
+    per_block = replay_kernel.LOGFILL_SEGMENT * replay_kernel.LOGFILL_WARPS
+    row = _kernel_row("logfill", launches["logfill"], err, ms, plain_ms,
+                      8 * b * n, reads, words=b * n, device_ms=dev_ms)
     log(f"phase 5: logfill ({b} x {n} words, {reads / words.numel():.2f} "
-        f"reads/word): {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return _kernel_row("logfill", launches["logfill"], err, ms, plain_ms,
-                       8 * b * n, reads, words=b * n)
+        f"reads/word): {ms:.4f} ms, device {dev_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}), share {row['bound_ms'] / dev_ms:.3f}; launch: "
+        f"grid {-(-n // per_block)} x {b} blocks of "
+        f"{32 * replay_kernel.LOGFILL_WARPS} threads "
+        f"({replay_kernel.LOGFILL_SEGMENT} words a warp); ptxas: "
+        f"{ptxas_of('logfill_kernel')}; on {card}")
+    return row
 
 
 def _fields_time(packed, v, prev_in, run_in, seen_in, what, card):
@@ -1034,7 +1108,7 @@ def main():
         "ms", "device_ms", "plain_ms", "bound_ms", "rows", "images",
         "n_cap")})
     phase5_replay_probe(runs[0], sparse, rows, card)
-    rows.append(phase5_logfill(oneshot[0], launches, dev))
+    rows.append(phase5_logfill(oneshot[0], launches, dev, card))
     rows.append(phase5_fields(sparse, runs[0], launches, dev, card))
     for name in EXPERIMENTS:
         rows.append(phase5_window(name, results, launches, dev, card))

@@ -51,8 +51,12 @@ _SIGNATURES = {
     "qk_replay_summary": [_P] * 9 + [_L, _I] + [_L] * 4 + [_P],
     # pb, emits, out, status, B, Q, n_cap, stream
     "qk_place_fill": [_P] * 4 + [_I, _L, _L, _P],
-    # keep, gidx, nplanes, in0..in3, out0..out3, B, N, cap, stream
-    "qk_compact": [_P, _P, _I] + [_P] * 8 + [_I, _L, _L, _P],
+    # keep, status, nstatus, nplanes, in0..in3, out0..out3, counts, B, N,
+    # cap, stream
+    "qk_compact": [_P, _P, _L, _I] + [_P] * 9 + [_I, _L, _L, _P],
+    # rows a block, threads a block
+    "qk_compact_tile": [],
+    "qk_compact_threads": [],
     # off, tlo, thn, out, B, C, out_cap, stream
     "qk_emit": [_P] * 4 + [_I, _L, _L, _P],
     # words, out, B, n, stream

@@ -21,15 +21,22 @@ bit-exact.  The cases:
               split lanes of 12,289 rows with pb = n_cap after a lane's
               budget;
   compact:    empty, full and random keep masks, one to four planes;
+              and every COMPACT_CASES case, each called twice in a row:
+              B = 1 and N = 1; N neither a multiple of 16 nor of the tile,
+              so lane offsets b * N are not 16-byte aligned; an all-kept
+              lane beside an empty one; keep toggled in runs of exactly
+              the tile; counts past cap; 2^24 rows over 4,098 tiles;
   emit:       encoder-shaped rows, a lane of 6-byte rows across every
               8192-byte window edge and past out_cap;
   replay_summary: resets mid-lane, IDX-only lanes, lanes that write
               nothing (NOP/RUN only), random rows and a random carry; and
               replay's case of C = 3 tiles + 5 rows;
-  logfill:    gaps of exactly 63 and 64, gaps across the kernel's tile
-              boundary, a flag at column 0, a row with no flag, a row
-              length that is not a multiple of the tile, and random
-              unflagged words (where the kernel still equals the passes);
+  logfill:    every LOGFILL_CASES case: rows shorter than 64 words;
+              random gaps of 1..64, a flag at column 0, a row with no
+              flag, rows that are no multiple of the warp segment; flags
+              exactly 63 and 64 words apart across every warp-segment and
+              block edge; random unflagged words (where the kernel still
+              equals the passes);
   fields:     RGB and RGBA; streaks whose 62nd pixel is the last of a tile
               and of a run_out block or the first of a tile, INDEX hits on
               the carried table only and on pixels three tiles back,
@@ -218,6 +225,48 @@ def place_fill_cases(rng, device):
              n) for p, n in cases]
 
 
+COMPACT_CASES = ("one row", "ragged lanes", "full beside empty",
+                 "tile runs", "past cap", "2^24 rows")
+
+
+def compact_case(name: str, rng, device):
+    """(planes, keep, cap) of K3 case ``name`` of COMPACT_CASES."""
+    tile = compact_kernel.launch_shape()[0]
+    b, n, nplanes = {"one row": (1, 1, 1),
+                     "ragged lanes": (3, 3 * tile + 9, 2),
+                     "full beside empty": (2, 2 * tile + 100, 3),
+                     "tile runs": (2, 6 * tile + 11, 4),
+                     "past cap": (3, 5 * tile + 3, 2),
+                     "2^24 rows": (2, (1 << 23) + 5, 2)}[name]
+    cap = {"one row": 4, "past cap": 3000}.get(name, n)
+    if name == "one row":
+        keep = np.ones((b, n), bool)
+    elif name == "full beside empty":
+        keep = np.zeros((b, n), bool)
+        keep[0] = True
+    elif name == "tile runs":
+        run = (np.arange(n) // tile) % 2 == 0
+        keep = np.stack([run, ~run])
+    else:
+        keep = rng.random((b, n)) < {"past cap": 0.5, "2^24 rows": 0.1}.get(
+            name, 0.3)
+    planes = tuple(_t(_words(rng, (b, n)), device) for _ in range(nplanes))
+    return planes, _t(keep, device), cap
+
+
+def compact_err(planes, keep, cap: int) -> int:
+    """Max |kernel - plain| of K3 over counts and the rows below both
+    counts and cap (rows past counts are unspecified)."""
+    got, counts = compact_kernel.compact_rows(planes, keep, cap)
+    want, wcounts = compact_kernel.compact_rows_reference(planes, keep, cap)
+    err = max_abs_err(counts, wcounts)
+    live = torch.arange(cap, device=keep.device)[None, :] < counts[:, None]
+    for g, w in zip(got, want):
+        err = max(err, max_abs_err(torch.where(live, g, 0),
+                                   torch.where(live, w, 0)))
+    return err
+
+
 def _compact(device) -> int:
     rng = np.random.default_rng(3)
     err = 0
@@ -227,15 +276,10 @@ def _compact(device) -> int:
                           (3, rng.random((b, n)) < 0.3),
                           (4, rng.random((b, n)) < 0.9)):
         planes = tuple(_t(_words(rng, (b, n)), device) for _ in range(nplanes))
-        tkeep = _t(keep, device)
-        got, counts = compact_kernel.compact_rows(planes, tkeep, cap)
-        want, wcounts = compact_kernel.compact_rows_reference(planes, tkeep,
-                                                              cap)
-        err = max(err, max_abs_err(counts, wcounts))
-        live = torch.arange(cap, device=device)[None, :] < counts[:, None]
-        for g, w in zip(got, want):  # rows past counts are unspecified
-            err = max(err, max_abs_err(torch.where(live, g, 0),
-                                       torch.where(live, w, 0)))
+        err = max(err, compact_err(planes, _t(keep, device), cap))
+    for name in COMPACT_CASES:
+        case = compact_case(name, rng, device)
+        err = max(err, compact_err(*case), compact_err(*case))
     return err
 
 
@@ -279,25 +323,61 @@ def _replay_summary(device) -> int:
         replay_kernel.replay_batch_summary_reference, rng, device))
 
 
-def _logfill(device) -> int:
-    rng = np.random.default_rng(6)
-    tile = 2048  # csrc/logfill.cu kTile
-    b, n = 6, 3 * tile + 77
+LOGFILL_CASES = ("short rows", "random gaps", "flags 63 and 64 apart",
+                 "unflagged words")
+
+
+def logfill_case(name: str, rng):
+    """(B, n) uint32 words of K6 case ``name`` of LOGFILL_CASES."""
+    seg = replay_kernel.LOGFILL_SEGMENT
+    blk = seg * replay_kernel.LOGFILL_WARPS
     flag = np.uint32(1 << 31)
-    words = np.zeros((b, n), np.uint32)
+    if name == "short rows":
+        words = np.zeros((3, 40), np.uint32)
+        words[0, [0, 5, 39]] = flag | np.uint32(3)
+        words[1, 30] = flag | np.uint32(4)
+        return words
+    if name == "flags 63 and 64 apart":
+        # around every segment edge e: flags 63 apart (e - 1, e + 62) and
+        # 64 apart (e - 32, e + 32, and e - 64, e) across the edge, and a
+        # lone flag at e whose reach ends at e + 63
+        n = 3 * blk + 2 * seg + 5
+        words = np.zeros((4, n), np.uint32)
+        for e in range(seg, n, seg):
+            for row, cols in enumerate(((e - 1, e + 62), (e - 32, e + 32),
+                                        (e - 64, e), (e,))):
+                cols = [c for c in cols if c < n]
+                words[row, cols] = flag | _words(rng, len(cols)) >> 1
+        return words
+    n = 3 * blk + 77  # no multiple of the segment
+    words = np.zeros((6, n), np.uint32)
+    if name == "unflagged words":
+        words = _words(rng, (6, n))  # about half of them flagged
+        words[1] &= ~flag  # a row with no flag
+        words[2] &= ~flag
+        words[2, ::97] |= flag  # flags 97 apart over non-zero words
+        return words
     for i in range(2):  # random gaps of 1..64
         pos = np.cumsum(rng.integers(1, 65, n))
         pos = pos[pos < n]
         words[i, pos] = flag | _words(rng, pos.size)
-    words[2, [0, 63, 127, 192, tile - 1, tile + 62, 2 * tile]] = flag | 7
-    words[3, [tile - 5, tile + 58, 2 * tile + 1, 3 * tile - 1]] = flag | 9
+    words[2, [0, 63, 127, 192, blk - 1, blk + 62, 2 * blk]] = flag | 7
+    words[3, [blk - 5, blk + 58, 2 * blk + 1, 3 * blk - 1]] = flag | 9
     # row 4 has no flag
-    words[5] = _words(rng, n)  # unflagged words need not be 0
+    words[5, ::seg] = flag | 11
+    return words
+
+
+def _logfill(device) -> int:
+    rng = np.random.default_rng(6)
     err = 0
-    for w in (words, words[:, : tile]):
-        tw = _t(w, device)
-        err = max(err, max_abs_err(replay_kernel.logfill_batch(tw),
-                                   replay_kernel.logfill_batch_reference(tw)))
+    for name in LOGFILL_CASES:
+        words = logfill_case(name, rng)
+        for w in (words, words[:, : replay_kernel.LOGFILL_SEGMENT]):
+            tw = _t(w, device)
+            err = max(err, max_abs_err(
+                replay_kernel.logfill_batch(tw),
+                replay_kernel.logfill_batch_reference(tw)))
     return err
 
 

@@ -1,13 +1,16 @@
 """K3: stable compaction of kept rows (CUDA kernel csrc/compact.cu).
 
-  out[p][b, gidx[b, r]] = plane[p][b, r]   for every kept row r,
-  gidx = exclusive running count of kept rows (torch.cumsum, outside the
-         kernel, as in the JAX package)
+  out[p][b, g] = plane[p][b, r]   for every kept row r,
+  g = the number of kept rows before r in lane b (the kernel counts them
+      itself, one pass over keep; the plain version by torch.cumsum, as
+      the JAX package computes it around its kernel)
 
 Rows at or past counts[b] are unspecified; mask them downstream.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,6 +20,14 @@ from .. import kernels
 # rule are written in it, so it stays to keep those shapes and flags equal.
 BLK = 2048
 MAX_PLANES = 4
+
+
+@functools.cache
+def launch_shape() -> tuple[int, int]:
+    """(rows a block, threads a block) of csrc/compact.cu, read from the
+    built library, which owns them; builds the kernels on first use."""
+    lib = kernels.library()
+    return lib.qk_compact_tile(), lib.qk_compact_threads()
 
 
 def _gidx_counts(keep):
@@ -54,13 +65,19 @@ def compact_rows(planes, keep, cap: int):
     kernels.check(keep, "keep", torch.bool, (b, n), dev)
     for i, p in enumerate(planes):
         kernels.check(p, f"planes[{i}]", torch.int32, (b, n), dev)
-    gidx, counts = _gidx_counts(keep)
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows a lane do not fit int32 counts")
     outs = tuple(torch.empty((b, cap), dtype=torch.int32, device=dev)
                  for _ in planes)
-    if b and n and cap:
-        pad = [0] * (MAX_PLANES - len(planes))
-        kernels.launch(
-            "compact", "qk_compact", dev, keep.data_ptr(), gidx.data_ptr(),
-            len(planes), *[p.data_ptr() for p in planes], *pad,
-            *[o.data_ptr() for o in outs], *pad, b, n, cap)
+    if not (b and n):
+        return outs, torch.zeros((b,), dtype=torch.int32, device=dev)
+    counts = torch.empty((b,), dtype=torch.int32, device=dev)
+    # one look-back word per tile, then the ticket counter
+    nstatus = b * -(-n // launch_shape()[0]) + 1
+    status = torch.zeros(nstatus, dtype=torch.int64, device=dev)
+    pad = [0] * (MAX_PLANES - len(planes))
+    kernels.launch(
+        "compact", "qk_compact", dev, keep.data_ptr(), status.data_ptr(),
+        nstatus, len(planes), *[p.data_ptr() for p in planes], *pad,
+        *[o.data_ptr() for o in outs], *pad, counts.data_ptr(), b, n, cap)
     return outs, counts

@@ -26,6 +26,9 @@ _START_HASH = (11 * 255) % 64
 
 CLS_NOP, CLS_SETA, CLS_SETC, CLS_ADD, CLS_IDX, CLS_RUN = range(6)
 
+# csrc/logfill.cu: words a warp walks (kSeg), warps a block (kWarps)
+LOGFILL_SEGMENT, LOGFILL_WARPS = 512, 8
+
 
 def initial_state(b: int, device=None):
     """The decoder's initial carry: prev (1, B) = start pixel; seen (64, B)

@@ -6,7 +6,9 @@ oracle, K2 and E1 across many blocks (selfcheck.place_fill_cases and
 fields_segments), and the experiment scripts (E2-E7, and E8/E9 in
 profile_r2) at a small size; and K1 and K5 against their plain versions
 on the whole output over no rows and tile-edge row counts, lane counts,
-both row layouts and one-class, reset, random and palette rows; and the
+both row layouts and one-class, reset, random and palette rows; K3 and K6
+on their edge cases (selfcheck.COMPACT_CASES, LOGFILL_CASES), K3 twice in
+a row, without a torch scan and refusing short status words; and the
 latency probe behind the replay chain bound against its plain loop.
 Without a CUDA device every test here skips.
 
@@ -71,6 +73,78 @@ def test_fields_segments_match_plain_version(cuda, b, nb):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     seg_tiles, nseg = fields_kernel.segments(b, nb, sms)
     assert nseg * seg_tiles * 1024 >= nb > (nseg - 1) * seg_tiles * 1024
+
+
+@pytest.mark.parametrize("case", selfcheck.COMPACT_CASES)
+def test_compact_cases_match_plain_version(cuda, case):
+    """K3 against its plain version on counts and every row below counts
+    and cap, called twice in a row on one stream (each call starts from
+    freshly zeroed status words and ticket): one row, ragged unaligned
+    lanes, 1-4 planes, an all-kept lane beside an empty one, keep toggled
+    in runs of exactly the tile, counts past cap, 2^24 rows."""
+    planes, keep, cap = selfcheck.compact_case(
+        case, np.random.default_rng(13), cuda)
+    before = kernels.launch_counts()["compact"]
+    for _ in range(2):
+        assert selfcheck.compact_err(planes, keep, cap) == 0
+    assert kernels.launch_counts()["compact"] == before + 2
+    if case == "past cap":
+        from qoipp_tpu_torch.ops import compact_kernel
+
+        assert int(compact_kernel.compact_rows(planes, keep, cap)[1].min()) \
+            > cap
+
+
+def test_compact_runs_no_scan(cuda):
+    """On the card K3 counts its own kept rows: one compact_rows call runs
+    the kernel and the zeroing of its status words, and no torch scan."""
+    from qoipp_tpu_torch.ops import compact_kernel
+    from qoipp_tpu_torch.utils import profile
+
+    planes, keep, cap = selfcheck.compact_case(
+        "ragged lanes", np.random.default_rng(14), cuda)
+    groups = profile.profile_path(
+        lambda: compact_kernel.compact_rows(planes, keep, cap))["groups"]
+    assert "K3 compact" in groups
+    assert set(groups) <= {"K3 compact", "torch elementwise", "fills"}
+
+
+def test_compact_rejects_short_status(cuda):
+    """qk_compact refuses status words fewer than a tile's each and the
+    ticket: it launches nothing and writes nothing past them."""
+    from qoipp_tpu_torch.ops import compact_kernel
+
+    b, n = 2, compact_kernel.launch_shape()[0] + 1  # two tiles a lane
+    keep = torch.ones((b, n), dtype=torch.bool, device=cuda)
+    plane = torch.zeros((b, n), dtype=torch.int32, device=cuda)
+    out = torch.zeros((b, n), dtype=torch.int32, device=cuda)
+    counts = torch.zeros((b,), dtype=torch.int32, device=cuda)
+    status = torch.zeros(2 * b + 1, dtype=torch.int64, device=cuda)
+    before = kernels.launch_counts()["compact"]
+    with pytest.raises(RuntimeError, match="qk_compact"):
+        kernels.launch("compact", "qk_compact", cuda, keep.data_ptr(),
+                       status.data_ptr(), 2 * b, 1, plane.data_ptr(), 0, 0,
+                       0, out.data_ptr(), 0, 0, 0, counts.data_ptr(), b, n,
+                       n)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["compact"] == before
+    assert not status.any() and not out.any()
+
+
+@pytest.mark.parametrize("case", selfcheck.LOGFILL_CASES)
+def test_logfill_cases_match_plain_version(cuda, case):
+    """K6 against its plain version: rows shorter than 64 words, rows that
+    are no multiple of the warp segment, flags 63 and 64 apart across
+    segment and block edges, non-zero unflagged words."""
+    from qoipp_tpu_torch.ops import replay_kernel
+
+    words = torch.from_numpy(selfcheck.logfill_case(
+        case, np.random.default_rng(15)).view(np.int32)).to(cuda)
+    before = kernels.launch_counts()["logfill"]
+    got = replay_kernel.logfill_batch(words)
+    torch.cuda.synchronize()
+    assert torch.equal(got, replay_kernel.logfill_batch_reference(words))
+    assert kernels.launch_counts()["logfill"] == before + 1
 
 
 REPLAY_TILE = selfcheck.REPLAY_TILE
@@ -290,6 +364,13 @@ def test_wrapper_rejects_bad_input(cuda):
                                 8192)
     with pytest.raises(ValueError, match="multiple"):
         place_kernel.place_fill(pb.to(torch.int32), emits, 8000)
+    from qoipp_tpu_torch.ops import compact_kernel
+
+    keep = torch.ones((2, 128), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="planes"):
+        compact_kernel.compact_rows((emits,) * 5, keep, 128)
+    with pytest.raises(ValueError, match="dtype"):
+        compact_kernel.compact_rows((emits,), keep.to(torch.uint8), 128)
 
 
 def test_dep_chain_matches_plain_version(cuda):

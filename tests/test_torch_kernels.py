@@ -212,11 +212,28 @@ def test_place_fill_edge_cases(name):
                           words_to_numpy(got))
 
 
-@pytest.mark.parametrize("density", [0.0, 0.03, 0.4, 1.0])
-def test_compact_rows(density):
-    rng = np.random.default_rng(int(density * 100))
-    b, n = 3, 2 * jck.BLK
-    keep = rng.random((b, n)) < density
+def _compact_keep(case, rng, b, n):
+    """A keep mask: rows kept with probability ``case``, or lane 0 all kept
+    beside an empty lane 1 ("full beside empty"), or lanes toggled in runs
+    of 4,096 rows, K3's tile on the card ("tile runs"); lane 2 random."""
+    if not isinstance(case, str):
+        return rng.random((b, n)) < case
+    keep = rng.random((b, n)) < 0.4
+    if case == "full beside empty":
+        keep[0], keep[1] = True, False
+    else:
+        run = (np.arange(n) // 4096) % 2 == 0
+        keep[0], keep[1] = run, ~run
+    return keep
+
+
+@pytest.mark.parametrize("case", [0.0, 0.03, 0.4, 1.0, "full beside empty",
+                                  "tile runs"])
+def test_compact_rows(case):
+    rng = np.random.default_rng(int(case * 100) if not isinstance(case, str)
+                                else len(case))
+    b, n = 3, 2 * jck.BLK if not isinstance(case, str) else 4 * 4096
+    keep = _compact_keep(case, rng, b, n)
     planes = [_words(rng, (b, n)) for _ in range(2)]
     cap = ((int(keep.sum(axis=1).max()) + jck.BLK + 256) // 128 + 1) * 128
     jplanes = tuple(jnp.asarray(p) for p in planes)
@@ -232,6 +249,29 @@ def test_compact_rows(density):
             c = int(counts[i])
             assert np.array_equal(g[i, :c], _np(w)[i, :c])
             assert np.array_equal(g[i, :c], _np(r)[i, :c])
+
+
+def test_compact_rows_past_cap():
+    # counts past cap: counts as JAX's, the rows below cap the first cap
+    # kept rows (JAX's clamped DMA leaves its rows undefined there)
+    rng = np.random.default_rng(21)
+    b, n, cap = 3, 4 * jck.BLK, jck.BLK + 128
+    keep = rng.random((b, n)) < 0.6
+    keep[2] = False
+    keep[2, : cap - 5] = True  # a lane under cap beside two over it
+    planes = [_words(rng, (b, n)) for _ in range(2)]
+    _, wcounts = jck.compact_rows(tuple(jnp.asarray(p) for p in planes),
+                                  jnp.asarray(keep), cap=cap)
+    got, counts = compact_kernel.compact_rows(
+        tuple(words_to_torch(p) for p in planes), torch.from_numpy(keep), cap)
+    assert np.array_equal(counts.numpy(), _np(wcounts))
+    assert (counts[:2] > cap).all() and counts[2] == cap - 5
+    for p, g in zip(planes, got):
+        assert g.shape == (b, cap)
+        for i in range(b):
+            rows = np.flatnonzero(keep[i])[:cap]
+            assert np.array_equal(words_to_numpy(g)[i, : rows.size],
+                                  p[i, rows])
 
 
 def _encoder_rows(rng, b, c, all_six_lane):
@@ -317,6 +357,25 @@ def test_logfill_batch():
     want = jrk.logfill_batch(jnp.asarray(words), blk=4096)
     got = replay_kernel.logfill_batch(words_to_torch(words))
     assert np.array_equal(_np(want), words_to_numpy(got))
+
+
+def test_logfill_batch_flags_63_and_64_apart():
+    # flags 63 and 64 words apart across every 4,096-word edge (the JAX
+    # kernel's block here, a block of warps of the CUDA kernel)
+    rng = np.random.default_rng(13)
+    n = 4 * 4096
+    words = np.zeros((3, n), np.uint32)
+    for e in range(4096, n, 4096):
+        for row, cols in enumerate(((e - 1, e + 62), (e - 32, e + 32),
+                                    (e - 64, e))):
+            words[row, list(cols)] = (np.uint32(1 << 31)
+                                      | _words(rng, 2) >> 1)
+    want = jrk.logfill_batch(jnp.asarray(words), blk=4096)
+    got = replay_kernel.logfill_batch(words_to_torch(words))
+    assert np.array_equal(_np(want), words_to_numpy(got))
+    # a flag fills 64 words (itself and 63 after), then 0
+    assert words_to_numpy(got)[2, 4096 + 63] == words[2, 4096]
+    assert words_to_numpy(got)[2, 4096 + 64] == 0
 
 
 @pytest.mark.parametrize("zero_unflagged", [True, False])
