@@ -4,8 +4,8 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (nine sources,
-   one nvcc each, started together) and the native oracle from
+1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (eleven
+   sources, one nvcc each, started together) and the native oracle from
    native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
    bit-exact (tolerance 0; E9's float32 bins within 1e-6);
@@ -47,7 +47,10 @@
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
-   inputs; E8 and E9 from the probes' run, beside their torch calls; K2 on
+   inputs, E3 and E4 also in device time beside K2's, with their launch
+   configuration and ptxas report, E3 with the share of its windows that
+   take the long search; E8 and E9 from the probes' run, beside their
+   torch calls; K2 on
    the batch and the split path's whole output and E1 at both
    stream-encode shapes and, logged only, at 8 batch RGB images, each
    also in device time (torch.profiler) and beside its first build's
@@ -76,6 +79,7 @@ for _name in ("jax", "qoipp_tpu", "bench", "benchmarks"):
     sys.modules[_name] = None  # the port runs where these are absent
 
 import json  # noqa: E402
+import math  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -153,13 +157,13 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                "benchmarks/fields_kernel.py:253"),
     "place_wide": ("qoipp_tpu_torch/csrc/place_window.cu",
                    "benchmarks/expt_place_wide.py:206"),
-    "place_fill2": ("qoipp_tpu_torch/csrc/place_window.cu",
+    "place_fill2": ("qoipp_tpu_torch/csrc/place_fill2.cu",
                     "benchmarks/expt_place2.py:181"),
     "place_fill_narrow": ("qoipp_tpu_torch/csrc/place_window.cu",
                           "benchmarks/expt_place_narrow.py:192"),
     "place_variant": ("qoipp_tpu_torch/csrc/place_window.cu",
                       "benchmarks/expt_place_fixed.py:174"),
-    "place_grouped": ("qoipp_tpu_torch/csrc/place_window.cu",
+    "place_grouped": ("qoipp_tpu_torch/csrc/place_grouped.cu",
                       "benchmarks/expt_place.py:163"),
     "emit_window": ("qoipp_tpu_torch/csrc/emit_window.cu",
                     "benchmarks/expt_emit_wide.py:223"),
@@ -238,12 +242,15 @@ def bound(nbytes, ops):
 
 
 def device_ms(fn, group):
-    """Device time a call of fn spends in kernel group ``group``: the sum
-    of its kernels' intervals under torch.profiler over 20 calls (the
-    profiler drops its window's first event, 1/20 of a launch or less)."""
+    """Device time a call of fn spends in kernel group ``group`` under
+    torch.profiler over 20 calls: the mean interval of the group's kernels
+    the profiler kept, times the launches a call.  The profiler may drop
+    events (its window's first; in one run a quarter of a kernel's), so
+    the launches a call are what it saw, rounded up."""
     groups = profile.profile_path(fn, calls=20, warmup=1)["groups"]
     expect(group in groups, f"the profiler saw no {group} kernel")
-    return groups[group][0]
+    ms, launches = groups[group]
+    return ms / launches * math.ceil(launches - 1e-9)
 
 
 def phase0_device():
@@ -923,12 +930,38 @@ def phase5_window(name, results, launches, dev, card):
     b, q = pb.shape
     log(f"phase 5: {name} ({case}: {b} x {q} rows -> {n_cap} px): "
         f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    extra = {}
+    if name == "place_fill2":
+        extra = _beside_k2(name, call, k2, "E2/E3/E5/E6 windowed placement",
+                           b * n_cap // (2 * place_kernel.WIN),
+                           "place_fill2_kernel", card)
+        extra["long_fill_share"] = expt_place2.long_fill_share(pb, n_cap)
+        log(f"phase 5: place_fill2: long search in "
+            f"{extra['long_fill_share']:.4f} of the windows")
     return _kernel_row(
         name, launches[name], _worst(err, results[name]), ms, plain_ms,
         8 * b * q + 4 * b * n_cap,
         b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap),
         case=case, rows=q, images=b, n_cap=n_cap, k2_ms=k2_ms,
-        variants=_variants(results[name]))
+        variants=_variants(results[name]), **extra)
+
+
+def _beside_k2(name, call, k2, group, blocks, entry, card):
+    """E3's or E4's device time (profiler group ``group``) and K2's on the
+    same input, the kernel's launch configuration and ptxas report (its
+    kernel entries whose names hold ``entry``), logged and returned as
+    kernel row fields."""
+    dev_ms = device_ms(call, group)
+    k2_dev_ms = device_ms(k2, "K2 place_fill")
+    threads, per_sm = place_window.launch_shape(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launch = (f"{blocks} blocks of {threads} threads, {per_sm} resident an "
+              f"SM on {sms} SMs ({blocks / (per_sm * sms):.1f} waves)")
+    log(f"phase 5: {name}: device {dev_ms:.4f} ms, K2 device "
+        f"{k2_dev_ms:.4f} ms ({dev_ms / k2_dev_ms:.3f}x K2); launch: "
+        f"{launch}; ptxas: {ptxas_of(entry)}; on {card}")
+    return dict(device_ms=dev_ms, k2_device_ms=k2_dev_ms, launch=launch,
+                blocks_per_sm=per_sm)
 
 
 def phase5_place_grouped(results, launches, dev, card):
@@ -950,17 +983,21 @@ def phase5_place_grouped(results, launches, dev, card):
     expect(err == 0, "place_grouped disagrees with its plain version")
     plain_ms = timed_ms(plain, warmup=1, runs=3)
     ms = timed_ms(call)
-    k2_ms = timed_ms(lambda: place_kernel.place_fill(pb, em, n_cap))
+    k2 = lambda: place_kernel.place_fill(pb, em, n_cap)
+    k2_ms = timed_ms(k2)
     b, q = pb.shape
     log(f"phase 5: place_grouped (main: {b} x {q} rows -> {n_cap} px): "
         f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    extra = _beside_k2("place_grouped", call, k2, "E4 grouped placement",
+                       b * n_cap // place_kernel.WIN,
+                       "place_grouped_kernelILi1E", card)  # lr_mode dyn
     rows = results["place_grouped"]
     return _kernel_row(
         "place_grouped", launches["place_grouped"], _worst(err, rows), ms,
         plain_ms, 8 * b * q + 4 * b * n_cap,
         b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap),
         case=f"main B={b}", rows=q, images=b, n_cap=n_cap, k2_ms=k2_ms,
-        variants=_variants(rows))
+        variants=_variants(rows), **extra)
 
 
 def phase5_emit_window(results, launches, dev, card):

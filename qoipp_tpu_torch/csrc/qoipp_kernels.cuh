@@ -64,4 +64,32 @@ __device__ inline uint32_t walk_back(unsigned long long* status,
   return 0u;
 }
 
+// The bit-mask fill of E3 and E4: pixel p of a block's region is written
+// iff bit p % 32 of mask word p / 32 is set.  For the quad x .. x + 3
+// (x % 4 == 0, one mask word), src[i] is pixel x + i's nearest written
+// pixel at or before it, at most 63 away and not before the region part
+// that starts at mask word `first`, or -1.  It is searched in the quad's
+// own word and the kWords - 1 words before it: kWords = 3 reaches 63;
+// kWords = 2 reaches at least 32, enough wherever every written pixel's
+// next written pixel is at most 8 after it.
+template <int kWords>
+__device__ __forceinline__ void quad_nearest(const uint32_t* mask, int x,
+                                             int first, int src[4]) {
+  static_assert(kWords == 2 || kWords == 3, "one or two words back");
+  const int k = x >> 5;
+  const uint32_t m0 = mask[k];
+  const uint32_t m1 = k - 1 >= first ? mask[k - 1] : 0u;
+  const uint32_t m2 = kWords == 3 && k - 2 >= first ? mask[k - 2] : 0u;
+  const int back = m1   ? ((k - 1) << 5) + 31 - __clz(m1)
+                   : m2 ? ((k - 2) << 5) + 31 - __clz(m2)
+                        : -1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int p = x + i;
+    const uint32_t mine = m0 & (0xFFFFFFFFu >> (31 - (p & 31)));
+    const int s = mine ? (k << 5) + 31 - __clz(mine) : back;
+    src[i] = s >= 0 && p - s <= 63 ? s : -1;
+  }
+}
+
 }  // namespace qk

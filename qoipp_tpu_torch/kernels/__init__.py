@@ -29,8 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
-           "logfill.cu", "fields.cu", "place_window.cu", "emit_window.cu",
-           "probes.cu")
+           "logfill.cu", "fields.cu", "place_window.cu", "place_fill2.cu",
+           "place_grouped.cu", "emit_window.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -72,6 +72,11 @@ _SIGNATURES = {
     "qk_place_variant": [_P] * 5 + [_I, _L, _L, _I, _I, _I, _P],
     # ..., n_cap, nbase, win, g, lr_mode, static_in, stream
     "qk_place_grouped": [_P] * 5 + [_I, _L, _L] + [_I] * 5 + [_P],
+    # threads a block, resident blocks an SM: E3; E4 at win, g, lr_mode
+    "qk_place_fill2_threads": [],
+    "qk_place_fill2_blocks_per_sm": [],
+    "qk_place_grouped_threads": [],
+    "qk_place_grouped_blocks_per_sm": [_I, _I, _I],
     # off, tlo, thn, base, out, B, C, out_cap, lanes, stream
     "qk_emit_window": [_P] * 5 + [_I, _L, _L, _I, _P],
     # x, y, steps, stream

@@ -57,14 +57,22 @@ bit-exact.  The cases:
               equal pb, rows with pb >= n_cap, a 62-pixel run crossing a
               window edge, an empty tail of three windows, a first pb > 0;
               E2 at every lanes, E5 at ns 1, 2, 4 and 64, E6 at every
-              do_dma / do_slabs / n_fill it takes;
-  place_grouped (E4; the whole output): (win, g) = (8192, 1) and (1024,
-              2), B = 2 and B = 1; equal-pb runs of 2, 3 and 256 rows, rows
-              with pb >= n_cap, a gap over 63 across a window edge inside a
-              step (the fill spans the step) and one across a step edge (the
-              carry), an empty tail of several steps; lr_mode cnt, dyn and
-              smem there, and every lr_mode with and without static_inputs
-              on 1,000 rows, which the timing-only modes' fixed range holds;
+              do_dma / do_slabs / n_fill it takes; E3 also on every
+              FILL2_CASES case: windows whose longest chunk is exactly 8
+              and exactly 9, units whose second window has no writer (with
+              the first window's last pixel owned and not), runs of units
+              with no writer (the inherit chain crosses units, an image's
+              first units among them), images whose last unit holds only
+              tail rows;
+  place_grouped (E4; the whole output): every GROUPED_SHAPES (win, g),
+              B = 2 and B = 1; equal-pb runs of 2, 3, 256 and 101 rows (the
+              last across the kernel's first tile edge) and of win + 300
+              rows, rows with pb >= n_cap, a gap over 63 across a window
+              edge inside a step (the fill spans the step) and one across a
+              step edge (the carry), an empty tail of several steps; lr_mode
+              cnt, dyn and smem there, and every lr_mode with and without
+              static_inputs on 1,000 rows, which the timing-only modes'
+              fixed range holds;
   emit_window (E7; the whole output): every lanes; C not a multiple of
               lanes, rows of 1-6 bytes and gaps of 7-8, a row across a
               window edge, a run of 20,000 equal-off rows (longer than the
@@ -545,9 +553,98 @@ def _place_wide(device) -> int:
 
 def _place_fill2(device) -> int:
     pw = place_window
-    return _windowed(np.random.default_rng(9), 4224, device,
-                     lambda pb, em, n: pw.place_fill2(
-                         pb, em, pw.window_base_rows(pb, n), n))
+    err = _windowed(np.random.default_rng(9), 4224, device,
+                    lambda pb, em, n: pw.place_fill2(
+                        pb, em, pw.window_base_rows(pb, n), n))
+    rng = np.random.default_rng(16)
+    return max([err] + [fill2_err(*fill2_case(name, rng, device))
+                        for name in FILL2_CASES])
+
+
+# E3's cases, each B = 3 images of 8 units (16 windows) of two windows
+FILL2_CASES = ("chunks of 8 and 9", "second window empty",
+               "units with no writer", "tail rows only")
+FILL2_WINDOWS = 16
+# each case's window kinds per image (_fill2_image); windows 2u and 2u + 1
+# make unit u
+_FILL2_KINDS = {
+    "chunks of 8 and 9": (
+        ["short", "nine"] * 4 + ["nine", "short", "long", "short"] * 2,
+        ["nine", "short", "short", "long"] * 4,
+        ["short"] * 15 + ["nine"]),
+    "second window empty": (
+        ["short", "empty", "short", "short", "gap end", "empty"] * 2
+        + ["long", "empty", "short", "empty"],
+        ["long", "empty"] * 8,
+        ["gap end", "empty"] * 7 + ["short", "empty"]),
+    "units with no writer": (
+        ["short", "short", "gap end"] + ["empty"] * 7 + ["short"] * 6,
+        ["empty"] * 4 + ["short"] * 2 + ["empty"] * 6 + ["long"] * 4,
+        ["gap end"] + ["empty"] * 15),
+    "tail rows only": (
+        ["short"] * 14 + ["tail"] * 2,
+        ["long", "nine"] * 6 + ["short", "tail", "tail", "tail"],
+        ["short"] * 13 + ["gap end", "tail", "tail"]),
+}
+
+
+def _fill2_image(rng, kinds, win):
+    """Sorted row offsets of one E3 image over len(kinds) windows of win
+    pixels.  A window's kind: "short", chunks of 1-8 pixels, one of them
+    exactly 8; "nine", chunks of 1-8 and one of exactly 9; "long", chunks
+    of 1-62 with one of 62 and one of 40; "gap end", short chunks, then a
+    last chunk 100 pixels before the window's end; "empty", no row starts
+    in it (the chunk before runs over it into the next window with rows, 5
+    pixels in); "tail", no row starts in it or after it (the rows left sit
+    at pb = n_cap)."""
+    pos, p = [], 0
+    for w, kind in enumerate(kinds):
+        if kind == "tail":
+            break
+        if kind == "empty":
+            p = (w + 1) * win + 5
+            continue
+        end = (w + 1) * win - (100 if kind == "gap end" else 0)
+        top = 62 if kind == "long" else 8
+        lengths = []
+        while p + sum(lengths) < end:
+            lengths.append(int(rng.integers(1, top + 1)))
+        force = {"short": [8], "nine": [9], "long": [62, 40]}.get(kind, [])
+        for i, n in enumerate(force):
+            if len(lengths) > 2 + i:
+                lengths[len(lengths) // 2 + i] = n
+        starts = p + np.cumsum([0] + lengths[:-1])
+        keep = starts < end  # the forced chunks may push the last ones out
+        pos.extend(starts[keep])
+        p += sum(np.array(lengths)[keep])
+        if kind == "gap end":
+            pos.append(end)
+            p = end + 100
+    return np.array(pos, np.int64)
+
+
+def fill2_case(name: str, rng, device):
+    """(pb, emits, n_cap) of E3 case ``name`` of FILL2_CASES: B = 3 images
+    of FILL2_WINDOWS windows, Q a multiple of 128 with at least 128 tail
+    rows at pb = n_cap."""
+    win = place_kernel.WIN
+    n_cap = FILL2_WINDOWS * win
+    images = [_fill2_image(rng, kinds, win) for kinds in _FILL2_KINDS[name]]
+    q = (max(x.size for x in images) // 128 + 2) * 128
+    pb = np.full((len(images), q), n_cap, np.int64)
+    for i, x in enumerate(images):
+        x = x[x < n_cap]
+        pb[i, : x.size] = x
+    return (_t(pb.astype(np.int32), device), _t(_words(rng, pb.shape), device),
+            n_cap)
+
+
+def fill2_err(pb, emits, n_cap) -> int:
+    """Max |E3 - plain| on the whole output."""
+    pw = place_window
+    return max_abs_err(
+        pw.place_fill2(pb, emits, pw.window_base_rows(pb, n_cap), n_cap),
+        place_kernel.place_fill_reference(pb, emits, n_cap))
 
 
 def _place_fill_narrow(device) -> int:
@@ -570,6 +667,11 @@ def _place_variant(device) -> int:
                     do_slabs=slabs, n_fill=n_fill),
                 n_fill, slabs))
     return err
+
+
+# E4's (win, g) in _place_grouped: one window a step, and steps of 2, 8 and
+# 16 windows (the largest step, 16,384 pixels, at 1,024 and 2,048 a window)
+GROUPED_SHAPES = ((place_kernel.WIN, 1), (1024, 2), (1024, 16), (2048, 8))
 
 
 def _grouped_image(rng, win, g, n_cap, dense):
@@ -596,13 +698,16 @@ def _grouped_image(rng, win, g, n_cap, dense):
 
 def _grouped_cases(rng, win, g):
     """[(pb, emits, n_cap)] numpy inputs of E4: B = 2 (image 0 has equal-pb
-    runs of 2, 3 and 256 rows and runs past n_cap; image 1 is
-    _grouped_image) and B = 1 (image 1 alone)."""
+    runs of 2, 3, 256 and 101 rows, the last over rows 2,000-2,100 across
+    the kernel's first tile edge, and runs past n_cap; image 1 is
+    _grouped_image, whose run of win + 300 rows puts more than 256 rows
+    on one pixel) and B = 1 (image 1 alone)."""
     n_cap = 5 * win * g
     one = _grouped_image(rng, win, g, n_cap, [0, 1, 1, 2, 3, 5])
     inc = rng.choice([0, 1, 1, 2, 3, 5, 17, 62], one.size)
     inc[[100, 200, 201]] = 0
     inc[300:555] = 0
+    inc[2000:2100] = 0
     zero = np.cumsum(inc) - inc
     assert zero[-1] >= n_cap
     pb = np.stack([zero, one]).astype(np.int32)
@@ -611,11 +716,15 @@ def _grouped_cases(rng, win, g):
             (pb[1:], _words(rng, (1, pb.shape[1])), n_cap)]
 
 
-def _place_grouped(device) -> int:
+def grouped_err(win: int, g: int, device) -> int:
+    """Max |E4 - plain| on the whole output at (win, g): lr_mode cnt, dyn
+    and smem on _grouped_cases, and every lr_mode with and without
+    static_inputs on 1,000 rows over five steps, which the timing-only
+    modes' fixed range holds."""
     pw = place_window
     err = 0
 
-    def run(pb, em, n_cap, win, g, mode, static_in):
+    def run(pb, em, n_cap, mode, static_in):
         tpb, tem = _t(pb, device), _t(em, device)
         base = pw.step_base_rows(tpb, n_cap, win if mode == "smem"
                                  else win * g)
@@ -624,21 +733,22 @@ def _place_grouped(device) -> int:
                              lr_mode=mode, static_inputs=static_in),
             pw.summed_place_reference(tpb, tem, n_cap, win, g))
 
-    for win, g in ((pw.WIN, 1), (1024, 2)):
-        rng = np.random.default_rng(12 + g)
-        for pb, em, n_cap in _grouped_cases(rng, win, g):
-            for mode in ("cnt", "dyn", "smem"):
-                err = max(err, run(pb, em, n_cap, win, g, mode, False))
-        # 1,000 rows over five steps: every window's rows lie in the fixed
-        # range the timing-only modes read
-        inc = rng.choice([0, 1, 2, 5, 17, 62, 200], (2, 1000))
-        pb = (np.cumsum(inc, axis=1) - inc).astype(np.int32)
-        n_cap = 5 * win * g
-        em = _words(rng, pb.shape)
-        for mode in pw.LR_MODES:
-            for static_in in (False, True):
-                err = max(err, run(pb, em, n_cap, win, g, mode, static_in))
+    rng = np.random.default_rng(12 + g)
+    for pb, em, n_cap in _grouped_cases(rng, win, g):
+        for mode in ("cnt", "dyn", "smem"):
+            err = max(err, run(pb, em, n_cap, mode, False))
+    inc = rng.choice([0, 1, 2, 5, 17, 62, 200], (2, 1000))
+    pb = (np.cumsum(inc, axis=1) - inc).astype(np.int32)
+    n_cap = 5 * win * g
+    em = _words(rng, pb.shape)
+    for mode in pw.LR_MODES:
+        for static_in in (False, True):
+            err = max(err, run(pb, em, n_cap, mode, static_in))
     return err
+
+
+def _place_grouped(device) -> int:
+    return max(grouped_err(win, g, device) for win, g in GROUPED_SHAPES)
 
 
 def _emit_window(device) -> int:

@@ -1,4 +1,5 @@
-"""E2-E6: the windowed placement experiments (csrc/place_window.cu).
+"""E2-E6: the windowed placement experiments (csrc/place_window.cu: E2,
+E5, E6; csrc/place_fill2.cu: E3; csrc/place_grouped.cu: E4).
 
 Four TPU layout experiments of the JAX package's K2 (``benchmarks/``
 ``expt_place_wide``, ``expt_place2``, ``expt_place_narrow``,
@@ -43,8 +44,27 @@ WIDE_LANES = (128, 256, 512)  # E2's candidate widths
 PRECS = ("highest", "bytes4")  # E6's MXU precisions on the TPU
 LR_MODES = ("cnt", "dyn", "smem", "static")  # E4's candidate-row modes
 DOT_PRECISIONS = ("default", "high", "highest")  # E4's MXU precisions
-MAX_STEP = 16384  # csrc/place_window.cu kMaxStep: pixels per E4 block
+MAX_STEP = 16384  # csrc/place_grouped.cu kMaxStep: pixels per E4 block
 REACH = 63  # E4's fill reach: six log-shift passes
+
+
+def launch_shape(name: str, win: int = WIN, g: int = 1,
+                 lr_mode: str = "dyn") -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of E3 (``name``
+    "place_fill2") or of E4 ("place_grouped", at win, g and lr_mode), read
+    from the built library (the CUDA occupancy calculator); builds the
+    kernels on first use."""
+    lib = kernels.library()
+    if name == "place_fill2":
+        threads, n = (lib.qk_place_fill2_threads(),
+                      lib.qk_place_fill2_blocks_per_sm())
+    else:
+        threads, n = (lib.qk_place_grouped_threads(),
+                      lib.qk_place_grouped_blocks_per_sm(
+                          win, g, LR_MODES.index(lr_mode)))
+    if n <= 0:
+        raise RuntimeError(f"{name}: occupancy query failed: CUDA error {-n}")
+    return threads, n
 
 
 def _slabs_below(pb, lanes: int, edges, pad: int):
@@ -180,9 +200,9 @@ def place_wide(pb, emits, base_step, n_cap: int, lanes: int = 256,
 
 
 def place_fill2(pb, emits, base_step, n_cap: int):
-    """E3: windowed placement, two windows per block from one staged row
-    range; the fill passes of reach beyond 7 run only in a window whose
-    longest chunk exceeds 8 pixels.  Q % 128 == 0, n_cap % (2 WIN) == 0,
+    """E3: windowed placement, two windows per block from one row range;
+    the fill searches past 7 pixels back only in a window whose longest
+    chunk exceeds 8 pixels.  Q % 128 == 0, n_cap % (2 WIN) == 0,
     base_step from window_base_rows.  Returns (B, n_cap) int32."""
     b, q = pb.shape
     _require(q % 128 == 0 and n_cap % (2 * WIN) == 0,

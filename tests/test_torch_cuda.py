@@ -3,7 +3,8 @@ PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
 chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
 one-shot codec and the streaming codec at a small size against the port's
 oracle, K2 and E1 across many blocks (selfcheck.place_fill_cases and
-fields_segments), and the experiment scripts (E2-E7, and E8/E9 in
+fields_segments), E3 on selfcheck.FILL2_CASES and E4 at every
+selfcheck.GROUPED_SHAPES, and the experiment scripts (E2-E7, and E8/E9 in
 profile_r2) at a small size; and K1 and K5 against their plain versions
 on the whole output over no rows and tile-edge row counts, lane counts,
 both row layouts and one-class, reset, random and palette rows; K3 and K6
@@ -58,6 +59,42 @@ def test_place_fill_windows_match_plain_version(cuda):
         assert torch.equal(got, place_kernel.place_fill_reference(
             pb, emits, n_cap))
     assert kernels.launch_counts()["place_fill"] == before + len(cases)
+
+
+@pytest.mark.parametrize("case", selfcheck.FILL2_CASES)
+def test_place_fill2_cases_match_plain_version(cuda, case):
+    """E3 on the whole output: windows whose longest chunk is exactly 8 and
+    exactly 9, units whose second window has no writer, runs of units with
+    no writer (the inherit chain crosses units), images whose last unit
+    holds only tail rows; each called twice in a row."""
+    pb, emits, n_cap = selfcheck.fill2_case(
+        case, np.random.default_rng(17), cuda)
+    before = kernels.launch_counts()["place_fill2"]
+    for _ in range(2):
+        assert selfcheck.fill2_err(pb, emits, n_cap) == 0
+    assert kernels.launch_counts()["place_fill2"] == before + 2
+
+
+@pytest.mark.parametrize("win,g", selfcheck.GROUPED_SHAPES)
+def test_place_grouped_shapes_match_plain_version(cuda, win, g):
+    """E4 on the whole output at (win, g): lr_mode cnt, dyn and smem on
+    more than 256 rows on one pixel, duplicates across a tile edge, gaps
+    across window and step edges; every lr_mode with static_inputs off
+    and on where the fixed range covers the rows."""
+    from qoipp_tpu_torch.ops import place_window
+
+    before = kernels.launch_counts()["place_grouped"]
+    assert selfcheck.grouped_err(win, g, cuda) == 0
+    assert kernels.launch_counts()["place_grouped"] > before
+    threads, per_sm = place_window.launch_shape("place_grouped", win, g)
+    assert threads > 0 and per_sm >= 1
+
+
+def test_place_fill2_launch_shape(cuda):
+    from qoipp_tpu_torch.ops import place_window
+
+    threads, per_sm = place_window.launch_shape("place_fill2")
+    assert threads > 0 and per_sm >= 1
 
 
 @pytest.mark.parametrize("b,nb", selfcheck.FIELDS_SEGMENT_SHAPES)

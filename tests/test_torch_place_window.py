@@ -30,6 +30,7 @@ from qoipp_tpu_torch.benchmarks import (expt_place, expt_place2,
                                         expt_place_fixed, expt_place_narrow,
                                         expt_place_wide)
 from qoipp_tpu_torch.convert import words_to_numpy, words_to_torch
+from qoipp_tpu_torch.kernels import selfcheck
 from qoipp_tpu_torch.ops import place_kernel
 from qoipp_tpu_torch.ops import place_window as PW
 
@@ -89,6 +90,36 @@ def test_place_fill2_matches_jax(case):
     pb, emits = _port(pbj, emj)
     got = PW.place_fill2(pb, emits, PW.window_base_rows(pb, n_cap), n_cap)
     _same(want, got)
+
+
+def _longest_chunks(pb, n_cap):
+    """Each window's longest chunk (pb[r+1] - pb[r] of its writers)."""
+    nxt, writes = PW.writers(pb, n_cap)
+    win = torch.where(writes, pb // PW.WIN, 0).long()
+    return torch.zeros((pb.shape[0], n_cap // PW.WIN), dtype=pb.dtype
+                       ).scatter_reduce(1, win, torch.where(writes, nxt - pb,
+                                                            0), "amax")
+
+
+def test_place_fill2_predicate_boundary_matches_jax():
+    # a window whose longest chunk is exactly 8 beside one whose longest is
+    # exactly 9: the JAX kernel fills the first to reach 7 only and runs
+    # the passes of reach 8-32 in the second
+    rng = np.random.default_rng(21)
+    kinds = (["short", "nine"] * 2, ["nine", "short"] * 2)
+    pb = np.stack([selfcheck._fill2_image(rng, k, PW.WIN)[:4096]
+                   for k in kinds]).astype(np.int32)
+    emits = rng.integers(0, 1 << 32, pb.shape, dtype=np.uint64).astype(
+        np.uint32)
+    n_cap = 4 * PW.WIN
+    tpb, temits = _port(pb, emits)
+    longest = _longest_chunks(tpb, n_cap)[:, :2].tolist()
+    assert longest == [[8, 9], [9, 8]]
+    want = _script("expt_place2").place_fill2(
+        jnp.asarray(pb), jnp.asarray(emits),
+        jpk.window_base_rows(jnp.asarray(pb), n_cap), n_cap)
+    _same(want, PW.place_fill2(tpb, temits, PW.window_base_rows(tpb, n_cap),
+                               n_cap))
 
 
 @pytest.mark.parametrize("ns", expt_place_narrow.NS)
