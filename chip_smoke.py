@@ -948,9 +948,9 @@ def phase5_window(name, results, launches, dev, card):
 
 def _beside_k2(name, call, k2, group, blocks, entry, card):
     """E3's or E4's device time (profiler group ``group``) and K2's on the
-    same input, the kernel's launch configuration and ptxas report (its
-    kernel entries whose names hold ``entry``), logged and returned as
-    kernel row fields."""
+    same input, returned as kernel row fields; logged with the kernel's
+    launch configuration and ptxas report (its kernel entries whose names
+    hold ``entry``), which stay out of the row."""
     dev_ms = device_ms(call, group)
     k2_dev_ms = device_ms(k2, "K2 place_fill")
     threads, per_sm = place_window.launch_shape(name)
@@ -960,8 +960,7 @@ def _beside_k2(name, call, k2, group, blocks, entry, card):
     log(f"phase 5: {name}: device {dev_ms:.4f} ms, K2 device "
         f"{k2_dev_ms:.4f} ms ({dev_ms / k2_dev_ms:.3f}x K2); launch: "
         f"{launch}; ptxas: {ptxas_of(entry)}; on {card}")
-    return dict(device_ms=dev_ms, k2_device_ms=k2_dev_ms, launch=launch,
-                blocks_per_sm=per_sm)
+    return dict(device_ms=dev_ms, k2_device_ms=k2_dev_ms)
 
 
 def phase5_place_grouped(results, launches, dev, card):
@@ -986,8 +985,19 @@ def phase5_place_grouped(results, launches, dev, card):
     k2 = lambda: place_kernel.place_fill(pb, em, n_cap)
     k2_ms = timed_ms(k2)
     b, q = pb.shape
+    # the rows the dyn kernel reads: each window's slabs from the first
+    # whose last pb reaches it to the last whose first pb lies below its end
+    slabs = pb.view(b, -1, place_window.SLAB)
+    edges = torch.arange(0, n_cap + 1, place_window.WIN, device=dev,
+                         dtype=torch.int32).expand(b, -1)
+    s0 = torch.searchsorted(slabs[:, :, -1].contiguous(),
+                            edges[:, :-1].contiguous())
+    e = torch.searchsorted(slabs[:, :, 0].contiguous(),
+                           edges[:, 1:].contiguous())
+    read = int((e - s0).clamp(min=0).sum()) * place_window.SLAB
     log(f"phase 5: place_grouped (main: {b} x {q} rows -> {n_cap} px): "
-        f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+        f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms; reads "
+        f"{read} rows, {read / (b * q):.4f} of the rows; on {card}")
     extra = _beside_k2("place_grouped", call, k2, "E4 grouped placement",
                        b * n_cap // place_kernel.WIN,
                        "place_grouped_kernelILi1E", card)  # lr_mode dyn

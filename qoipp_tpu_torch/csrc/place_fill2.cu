@@ -211,17 +211,17 @@ place_fill2_kernel(const int32_t* __restrict__ pb,
 
 }  // namespace
 
-// Threads a block, and resident blocks an SM at the kernel's shared
-// memory and registers (or a negative CUDA error).
-QK_API int qk_place_fill2_threads() { return kThreads; }
-
-QK_API int qk_place_fill2_blocks_per_sm() {
+// Resident blocks an SM at the kernel's shared memory and registers (or a
+// negative CUDA error); its threads a block in *threads.
+QK_API int qk_place_fill2_occupancy(int* threads) {
+  *threads = kThreads;
   int n = 0;
-  cudaFuncSetAttribute(place_fill2_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(sizeof(Shared)));
-  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, place_fill2_kernel, kThreads, sizeof(Shared));
+  cudaError_t rc = cudaFuncSetAttribute(
+      place_fill2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(Shared)));
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, place_fill2_kernel, kThreads, sizeof(Shared));
   return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }
 

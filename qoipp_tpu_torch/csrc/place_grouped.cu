@@ -13,15 +13,11 @@
 // The candidate rows of window w0 .. w0 + win, in 128-row slabs (the TPU's
 // lr_mode): blk = base[j] / 8 * 8 is the step's block (base[j * g] in smem
 // mode; slab 0 with static_in, where the block holds only LENR = g * win /
-// 128 + 16 slabs);
-//   kCnt:    from the first slab of the block whose last pb >= w0 (counted
-//            here), win / 128 + 2 slabs, then on while rows fall in the
-//            window;
-//   kDyn:    from the same slab, only while rows fall in the window.  The
-//            rows before that slab lie below the window and place nothing,
-//            so without static_in the block reads from blk (its first tile
-//            in flight at once, no count to wait on), and each later window
-//            of the step from the tile in which the window before it ended;
+// 128 + 16 slabs).  The kernel counts, over the block, the window's slabs
+// [s0, e): s0 the first whose last pb >= w0, e the first whose first pb
+// >= w_end, so the slabs that intersect the window;
+//   kCnt:    win / 128 + 2 slabs from s0, and on to e;
+//   kDyn:    the slabs s0 .. e;
 //   kSmem:   like kCnt from slab base[w] (base holds one entry per window);
 //   kStatic: win / 128 + 2 slabs from the block's first, whatever the
 //            window (timing only: it places the wrong rows on purpose).
@@ -29,11 +25,15 @@
 // What bounds it on the card: bytes, 8 per row read and 4 per pixel
 // written.  The design, after K2's (csrc/place_fill.cu):
 //   - one block a step in the order of an atomic ticket;
+//   - the window's slabs counted by two __syncthreads_count over kProbe
+//     slabs a step (the first window's tests loaded while the shared
+//     state is zeroed), so the rows to read are known before the first is
+//     loaded and no tile waits on a stop test (a probe of 512 slabs a
+//     step, mostly far past the window, took the E4 driver's input from
+//     0.650 to 0.887 ms on an H100);
 //   - rows in tiles of kTile, kRowsPer coalesced rows a thread straight
-//     into registers; with its tile every thread loads the tile's last pb,
-//     so each decides alone and alike whether the window goes on (no block
-//     sync, no dependent load a tile), and the next tile's loads are issued
-//     before the current tile is added;
+//     into registers, the next tile's loads issued before the current
+//     tile is added;
 //   - two 32-bit shared sums a pixel (atomicAdd) and a bit mask (atomicOr),
 //     zeroed first, 66 KB a block at the default step of 8,192 pixels;
 //   - the fill is a nearest search over the mask a 4-pixel quad at a time
@@ -53,11 +53,11 @@ constexpr int kRowsPer = 4;
 constexpr int kTile = kThreads * kRowsPer;
 constexpr int kMaxStep = 16384;  // pixels a block: 130 KB of shared memory
 constexpr int kMaxQuads = kMaxStep / 4 / kThreads;  // quads a thread
+constexpr int kProbe = 32;  // slabs a count step tests: one warp's loads
 
 struct Tile {
   int32_t p[kRowsPer];
   uint32_t e[kRowsPer];
-  int32_t last;  // pb of the tile's last row
 };
 
 // Rows r0 .. r0 + kTile, those at or past `limit` reading as pb = n_cap.
@@ -70,8 +70,20 @@ __device__ __forceinline__ void load(Tile& t, const int32_t* prow,
     t.p[k] = r < limit ? prow[r] : n_cap;
     t.e[k] = r < limit ? erow[r] : 0u;
   }
-  const long long r = r0 + kTile - 1;
-  t.last = r < limit ? prow[r] : n_cap;
+}
+
+// Slab s + threadIdx.x, in the first kProbe threads and below lim:
+// whether its last pb lies below w0, and whether its first pb lies below
+// w_end.
+__device__ __forceinline__ void slab_tests(const int32_t* prow, long long s,
+                                           long long lim, long long Q,
+                                           int32_t n_cap, int w0, int w_end,
+                                           bool& below, bool& starts) {
+  const long long k = s + threadIdx.x;
+  const long long r = k * kSlab;
+  const bool in = threadIdx.x < kProbe && k < lim;  // then r < Q
+  below = in && (r + kSlab - 1 < Q ? prow[r + kSlab - 1] : n_cap) < w0;
+  starts = in && prow[r] < w_end;
 }
 
 // A step pixel's word from its two sums.
@@ -101,9 +113,6 @@ place_grouped_kernel(const int32_t* __restrict__ pb,
     ticket = qk::take_ticket(status, gridDim.x);
     need = 0;
   }
-  uint4* z = reinterpret_cast<uint4*>(raw);
-  for (int i = t; i < (2 * step + step / 32) / 4; i += kThreads)
-    z[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   const long long nsteps = n_cap / step;
   const long long tk = static_cast<long long>(ticket);
@@ -118,36 +127,51 @@ place_grouped_kernel(const int32_t* __restrict__ pb,
   const long long lim = static_in ? min(nslab, at + g * (win / kSlab) + 16)
                                   : nslab;
   const long long rlim = min(lim * kSlab, Q);
-  long long resume = at * kSlab;  // kDyn: the rows before lie below w0
+  const long long cbr = win / kSlab + 2;  // the TPU's fixed slabs a window
 
+  // Both tests hold on a prefix of the slabs from `at` on (pb is
+  // nondecreasing, and `below` implies `starts`), and on a longer one for
+  // each later window, so each window counts from the one before's s0.
+  constexpr bool kCount = kMode != kStatic;
+  bool below = false, starts = false, loaded = kCount;
+  if (kCount)
+    slab_tests(prow, at, lim, Q, ncap, static_cast<int>(j * step),
+               static_cast<int>(j * step) + win, below, starts);
+  uint4* z = reinterpret_cast<uint4*>(raw);
+  for (int i = t; i < (2 * step + step / 32) / 4; i += kThreads)
+    z[i] = make_uint4(0, 0, 0, 0);
+  if (!kCount) __syncthreads();  // else the first count's syncs are this
+
+  long long s0 = at;
   for (int gi = 0; gi < g; ++gi) {
     const int w0 = static_cast<int>(j * step) + gi * win;
     const int w_end = w0 + win;
-    long long rs = resume, rfix = resume;  // first row; rows read at least
-    if (kMode != kDyn || static_in) {
-      long long s0 = at;
-      if (kMode == kCnt || kMode == kDyn) {
-        for (;;) {  // count the slabs whose last pb is below w0
-          const long long k = s0 + t;
-          const long long r = k * kSlab + kSlab - 1;
-          const int n = __syncthreads_count(
-              k < lim && (r < Q ? prow[r] : ncap) < w0);
-          s0 += n;
-          if (n < kThreads) break;
+    long long rs = at, limit = at + cbr;  // in slabs
+    if (kCount) {
+      long long first = -1, e = 0;
+      for (long long s = s0;; s += kProbe) {
+        if (!loaded)
+          slab_tests(prow, s, lim, Q, ncap, w0, w_end, below, starts);
+        loaded = false;
+        const int nb = __syncthreads_count(below);
+        const int ns = __syncthreads_count(starts);
+        if (first < 0 && nb < kProbe) first = s + nb;
+        if (ns < kProbe) {
+          e = s + ns;
+          break;
         }
-      } else if (kMode == kSmem) {
-        s0 = at + brow[j * g + gi] - blk;
       }
-      rs = s0 * kSlab;
-      rfix = kMode == kDyn ? rs : min((s0 + win / kSlab + 2) * kSlab, rlim);
+      s0 = first;
+      rs = kMode == kSmem ? at + brow[j * g + gi] - blk : s0;
+      limit = kMode == kDyn ? e : max(rs + cbr, e);
     }
-    const long long limit = kMode == kStatic ? rfix : rlim;
+    rs *= kSlab;
+    limit = min(limit * kSlab, rlim);
     if (rs >= limit) continue;
     Tile cur;
     load(cur, prow, erow, rs, limit, ncap);
     for (long long r0 = rs;; r0 += kTile) {
-      const bool more = r0 + kTile < limit &&
-                        (r0 + kTile < rfix || cur.last < w_end);
+      const bool more = r0 + kTile < limit;
       Tile nxt;
       if (more) load(nxt, prow, erow, r0 + kTile, limit, ncap);
 #pragma unroll
@@ -160,10 +184,7 @@ place_grouped_kernel(const int32_t* __restrict__ pb,
           atomicOr(mask + (x >> 5), 1u << (x & 31));
         }
       }
-      if (!more) {
-        resume = r0;
-        break;
-      }
+      if (!more) break;
       cur = nxt;
     }
   }
@@ -218,19 +239,6 @@ size_t shared_bytes(int step) {
 }
 
 template <int kMode>
-int blocks_per_sm(int step) {
-  int n = 0;
-  const size_t smem = shared_bytes(step);
-  cudaError_t rc = cudaFuncSetAttribute(
-      place_grouped_kernel<kMode>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, place_grouped_kernel<kMode>, kThreads, smem);
-  return rc == cudaSuccess ? n : -static_cast<int>(rc);
-}
-
-template <int kMode>
 int run(int B, cudaStream_t stream, const void* pb, const void* emits,
         const void* base, void* out, void* status, long long Q,
         long long n_cap, int nbase, int win, int g, int static_in) {
@@ -257,20 +265,21 @@ bool bad_step(long long win, long long g, long long n_cap) {
 
 }  // namespace
 
-// Threads a block, and resident blocks an SM of the kernel of lr_mode
-// `mode` at a step of win * g pixels (or a negative CUDA error).
-QK_API int qk_place_grouped_threads() { return kThreads; }
-
-QK_API int qk_place_grouped_blocks_per_sm(int win, int g, int mode) {
+// Resident blocks an SM of the dyn kernel at a step of win * g pixels
+// (or a negative CUDA error); its threads a block in *threads.
+QK_API int qk_place_grouped_occupancy(int win, int g, int* threads) {
+  *threads = kThreads;
   if (bad_step(win, g, static_cast<long long>(win) * g))
     return -static_cast<int>(cudaErrorInvalidValue);
-  switch (mode) {
-    case kCnt: return blocks_per_sm<kCnt>(win * g);
-    case kDyn: return blocks_per_sm<kDyn>(win * g);
-    case kSmem: return blocks_per_sm<kSmem>(win * g);
-    case kStatic: return blocks_per_sm<kStatic>(win * g);
-  }
-  return -static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = shared_bytes(win * g);
+  int n = 0;
+  cudaError_t rc = cudaFuncSetAttribute(
+      place_grouped_kernel<kDyn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, place_grouped_kernel<kDyn>, kThreads, smem);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }
 
 // pb (B, Q) int32 nondecreasing, emits (B, Q) uint32, base (B, nbase) int32

@@ -72,11 +72,9 @@ _SIGNATURES = {
     "qk_place_variant": [_P] * 5 + [_I, _L, _L, _I, _I, _I, _P],
     # ..., n_cap, nbase, win, g, lr_mode, static_in, stream
     "qk_place_grouped": [_P] * 5 + [_I, _L, _L] + [_I] * 5 + [_P],
-    # threads a block, resident blocks an SM: E3; E4 at win, g, lr_mode
-    "qk_place_fill2_threads": [],
-    "qk_place_fill2_blocks_per_sm": [],
-    "qk_place_grouped_threads": [],
-    "qk_place_grouped_blocks_per_sm": [_I, _I, _I],
+    # resident blocks an SM, threads a block out: E3; E4 at win, g
+    "qk_place_fill2_occupancy": [_P],
+    "qk_place_grouped_occupancy": [_I, _I, _P],
     # off, tlo, thn, base, out, B, C, out_cap, lanes, stream
     "qk_emit_window": [_P] * 5 + [_I, _L, _L, _I, _P],
     # x, y, steps, stream

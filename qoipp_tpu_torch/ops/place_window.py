@@ -33,6 +33,8 @@ over steps of g windows; ``place_grouped`` is its wrapper.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
@@ -48,23 +50,20 @@ MAX_STEP = 16384  # csrc/place_grouped.cu kMaxStep: pixels per E4 block
 REACH = 63  # E4's fill reach: six log-shift passes
 
 
-def launch_shape(name: str, win: int = WIN, g: int = 1,
-                 lr_mode: str = "dyn") -> tuple[int, int]:
+def launch_shape(name: str, win: int = WIN, g: int = 1) -> tuple[int, int]:
     """(threads a block, resident blocks an SM) of E3 (``name``
-    "place_fill2") or of E4 ("place_grouped", at win, g and lr_mode), read
-    from the built library (the CUDA occupancy calculator); builds the
-    kernels on first use."""
+    "place_fill2") or of E4 ("place_grouped", lr_mode dyn at win and g),
+    read from the built library (the CUDA occupancy calculator); builds
+    the kernels on first use."""
     lib = kernels.library()
+    threads = ctypes.c_int()
     if name == "place_fill2":
-        threads, n = (lib.qk_place_fill2_threads(),
-                      lib.qk_place_fill2_blocks_per_sm())
+        n = lib.qk_place_fill2_occupancy(ctypes.byref(threads))
     else:
-        threads, n = (lib.qk_place_grouped_threads(),
-                      lib.qk_place_grouped_blocks_per_sm(
-                          win, g, LR_MODES.index(lr_mode)))
+        n = lib.qk_place_grouped_occupancy(win, g, ctypes.byref(threads))
     if n <= 0:
         raise RuntimeError(f"{name}: occupancy query failed: CUDA error {-n}")
-    return threads, n
+    return threads.value, n
 
 
 def _slabs_below(pb, lanes: int, edges, pad: int):
@@ -260,7 +259,9 @@ def place_grouped(pb, emits, base_step, n_cap: int, win: int = WIN,
     of a window, never stopping at the TPU kernel's CBR / LENR slabs:
       "cnt":    win / 128 + 2 slabs from the first one (counted in the
                 kernel), then on while rows fall in the window;
-      "dyn":    only the slabs that intersect the window;
+      "dyn":    only the slabs that intersect the window (from the first
+                whose last pb reaches the window to the last whose first
+                pb lies below its end, both counted in the kernel);
       "smem":   like "cnt" from base_step's per-window slab;
       "static", and static_inputs=True: timing only, as on the TPU: every
                 window reads a fixed row range (win / 128 + 2 slabs from the

@@ -3,10 +3,11 @@ entry point at the smoke run's sizes, summed by kernel group.
 
     python -m qoipp_tpu_torch.utils.profile      # on a machine with a card
 
-For each path it prints, per call (3 calls after 3 warmups): the device
-busy time (the union of kernel and copy intervals), the span from the
-first to the last of them, the idle share of that span, and the busy
-time by kernel group with launches.  The inputs are the smoke run's:
+For each path it prints, per call (3 calls after 3 warmups; 30, marked,
+where the profiler kept no device event of the 3): the device busy time
+(the union of kernel and copy intervals), the span from the first to the
+last of them, the idle share of that span, and the busy time by kernel
+group with launches.  The inputs are the smoke run's:
 BatchPipeline on 16 RGB and 8 RGBA 1920x1088 images, SplitDecoder(96) on
 the 4096x4096 sparse and the 1920x1088 dense stream, the one-shot
 codec on one RGB and one RGBA 1920x1088 image, and the streaming codec on
@@ -68,21 +69,28 @@ def busy_us(intervals) -> float:
 
 
 def profile_path(fn, calls: int = 3, warmup: int = 3) -> dict:
-    """Device busy ms, span ms and idle share per call of fn, and busy ms
-    and launches per call by kernel group."""
+    """Device busy ms, span ms and idle share per call of fn, busy ms and
+    launches per call by kernel group, and the calls traced.  The
+    profiler at times keeps no device event of a path of a few short
+    launches: such a path is traced again over ten times the calls, and
+    raises if it shows no device activity then either."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
+    for calls in (calls, 10 * calls):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    else:
         raise RuntimeError("the profiler saw no device activity")
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     groups: dict = {}
@@ -93,7 +101,7 @@ def profile_path(fn, calls: int = 3, warmup: int = 3) -> dict:
     busy = busy_us(spans)
     span = max(e for _, e in spans) - min(s for s, _ in spans)
     return dict(busy_ms=busy / calls / 1e3, span_ms=span / calls / 1e3,
-                idle=1 - busy / span,
+                idle=1 - busy / span, calls=calls,
                 groups={k: (v[0] / calls / 1e3, v[1] / calls)
                         for k, v in sorted(groups.items(),
                                            key=lambda kv: -kv[1][0])})
@@ -248,17 +256,11 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     for label, fn in _paths(torch.device("cuda")):
-        try:
-            r = profile_path(fn)
-        except RuntimeError as e:
-            if "no device activity" not in str(e):
-                raise
-            # the profiler kept no event of the path's few short launches
-            print(f"{label}: not measured ({e})", flush=True)
-            continue
+        r = profile_path(fn)
         parts = "; ".join(f"{g} {ms:.3f} ({n:g})"
                           for g, (ms, n) in r["groups"].items())
-        print(f"{label}: busy {r['busy_ms']:.3f} ms, span "
+        traced = "" if r["calls"] == 3 else f" ({r['calls']} calls)"
+        print(f"{label}{traced}: busy {r['busy_ms']:.3f} ms, span "
               f"{r['span_ms']:.3f} ms, idle share {r['idle']:.3f} | "
               f"{parts}", flush=True)
 
