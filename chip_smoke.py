@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (eleven
+1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (thirteen
    sources, one nvcc each, started together) and the native oracle from
    native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
@@ -47,9 +47,11 @@
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
-   inputs, E3 and E4 also in device time beside K2's, with their launch
+   inputs, E3-E6 also in device time beside K2's, with their launch
    configuration and ptxas report, E3 with the share of its windows that
-   take the long search; E8 and E9 from the probes' run, beside their
+   take the long search, E6 with the global loads in the SASS of each
+   instantiation, so that those which read rows they do not place show
+   that they still read them; E8 and E9 from the probes' run, beside their
    torch calls; K2 on
    the batch and the split path's whole output and E1 at both
    stream-encode shapes and, logged only, at 8 batch RGB images, each
@@ -80,6 +82,7 @@ for _name in ("jax", "qoipp_tpu", "bench", "benchmarks"):
 
 import json  # noqa: E402
 import math  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
 
@@ -159,9 +162,9 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                    "benchmarks/expt_place_wide.py:206"),
     "place_fill2": ("qoipp_tpu_torch/csrc/place_fill2.cu",
                     "benchmarks/expt_place2.py:181"),
-    "place_fill_narrow": ("qoipp_tpu_torch/csrc/place_window.cu",
+    "place_fill_narrow": ("qoipp_tpu_torch/csrc/place_narrow.cu",
                           "benchmarks/expt_place_narrow.py:192"),
-    "place_variant": ("qoipp_tpu_torch/csrc/place_window.cu",
+    "place_variant": ("qoipp_tpu_torch/csrc/place_variant.cu",
                       "benchmarks/expt_place_fixed.py:174"),
     "place_grouped": ("qoipp_tpu_torch/csrc/place_grouped.cu",
                       "benchmarks/expt_place.py:163"),
@@ -931,13 +934,21 @@ def phase5_window(name, results, launches, dev, card):
     log(f"phase 5: {name} ({case}: {b} x {q} rows -> {n_cap} px): "
         f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
     extra = {}
+    if name != "place_wide":
+        windows = b * n_cap // place_kernel.WIN
+        extra = _beside_k2(
+            name, call, k2, "E2/E3/E5/E6 windowed placement",
+            windows // 2 if name == "place_fill2" else windows,
+            {"place_fill2": "place_fill2_kernel",
+             "place_fill_narrow": "place_narrow_kernel",
+             "place_variant": "place_variant_kernelILb1ELb1ELi6E"}[name],
+            card)
     if name == "place_fill2":
-        extra = _beside_k2(name, call, k2, "E2/E3/E5/E6 windowed placement",
-                           b * n_cap // (2 * place_kernel.WIN),
-                           "place_fill2_kernel", card)
         extra["long_fill_share"] = expt_place2.long_fill_share(pb, n_cap)
         log(f"phase 5: place_fill2: long search in "
             f"{extra['long_fill_share']:.4f} of the windows")
+    if name == "place_variant":
+        log_variant_loads()
     return _kernel_row(
         name, launches[name], _worst(err, results[name]), ms, plain_ms,
         8 * b * q + 4 * b * n_cap,
@@ -946,8 +957,31 @@ def phase5_window(name, results, launches, dev, card):
         variants=_variants(results[name]), **extra)
 
 
+def log_variant_loads():
+    """Log the global loads (LDG) in the SASS of each E6 instantiation and
+    require every one that reads rows (do_dma) to hold more of them than
+    the one at the same n_fill that reads none: the instantiations that
+    read rows they never place must still read them."""
+    loads, name = {}, None
+    for line in kernels.sass("place_variant_kernel").splitlines():
+        if "Function :" in line:
+            m = re.search(r"place_variant_kernelILb(\d)ELb(\d)ELi(\d)E", line)
+            name = tuple(int(x) for x in m.groups())
+            loads[name] = 0
+        elif name is not None and re.search(r"\bLDG\b", line):
+            loads[name] += 1
+    log("phase 5: place_variant: LDG instructions in the SASS (do_dma, "
+        "do_slabs, n_fill): " + ", ".join(
+            f"{k}: {v}" for k, v in sorted(loads.items())))
+    expect(len(loads) == 21, f"SASS of {len(loads)} E6 instantiations")
+    for (dma, slabs, fill), n in loads.items():
+        if dma:
+            expect(n > loads[(0, 0, fill)], f"E6 ({dma}, {slabs}, {fill}) "
+                   "lost its row loads")
+
+
 def _beside_k2(name, call, k2, group, blocks, entry, card):
-    """E3's or E4's device time (profiler group ``group``) and K2's on the
+    """E3-E6's device time (profiler group ``group``) and K2's on the
     same input, returned as kernel row fields; logged with the kernel's
     launch configuration and ptxas report (its kernel entries whose names
     hold ``entry``), which stay out of the row."""

@@ -5,9 +5,10 @@ Counterpart of the repository's ``benchmarks/expt_place_narrow.py``, which
 asked whether a 128-row slab whose chunks cover a few 128-pixel stripes
 should take a small (2 NS, 128) one-hot product on the TPU's matrix unit
 instead of the whole window's.  Here the question becomes gather or
-scatter: a staged group of 128 rows whose writers span at most ``ns``
-stripes is written by threads over its pixels searching the group's rows,
-and wider groups by one thread per row (ops/place_window.place_fill_narrow).
+scatter: a warp's group of 128 rows whose writers span at most ``ns``
+stripes gets each mask word of the span from one warp reduction, and
+wider groups an atomic a word per lane (ops/place_window
+.place_fill_narrow).
 
     python -m qoipp_tpu_torch.benchmarks.expt_place_narrow [-b 8] [--rows 524288]
 """

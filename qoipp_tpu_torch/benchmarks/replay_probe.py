@@ -34,9 +34,6 @@ thread's loop gives this design's dependent instructions a state row
 from __future__ import annotations
 
 import argparse
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -219,19 +216,7 @@ def run_probe(k1_meta, k1_val, k5_meta, k5_val, k5_carry, dev,
 def sass() -> str:
     """The SASS of the replay kernels (K1 and K5) and of the latency probe
     in the built library."""
-    tool = shutil.which("cuobjdump") or str(
-        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
-        / "cuobjdump")
-    kernels.library()
-    text = subprocess.run([tool, "-sass", str(kernels.LIB_PATH)], check=True,
-                          capture_output=True, text=True).stdout
-    out, keep = [], False
-    for line in text.splitlines():
-        if "Function :" in line:
-            keep = "replay_kernel" in line or "dep_chain" in line
-        if keep:
-            out.append(line)
-    return "\n".join(out) + "\n"
+    return kernels.sass("replay_kernel", "dep_chain")
 
 
 def main(argv=None, device=None) -> list:

@@ -8,7 +8,7 @@
 // emits[r] at pixel pb[r] iff pb[r+1] > pb[r] (pb[Q] := n_cap) and
 // 0 <= pb[r] < n_cap.  Pixels are cut into windows of kWin; inside a window
 // a pixel takes the word of the nearest written pixel at or before it, at
-// most kReach away (a chunk produces at most 62 pixels); any other pixel
+// most 63 away (a chunk produces at most 62 pixels); any other pixel
 // takes the carry, the previous window's last output (0 in an image's
 // first window).  The plain version is
 // ops/place_kernel.place_fill_reference.
@@ -30,34 +30,27 @@
 //   - each writer stores its word into a 32 KB shared window and sets its
 //     bit in a 1 KB mask of 32-pixel words; a pixel's nearest writer at
 //     most 63 back lies in its own mask word or the two before it, so the
-//     fill is three shared loads and a count of leading zeros, no passes;
+//     fill is three shared loads and a count of leading zeros a quad of
+//     pixels (qk::quad_nearest), no passes;
 //   - the carry by decoupled look-back: right after placing, a window
 //     whose last pixel is owned publishes that word, any other "inherit";
 //     a window that needs its carry walks back to the nearest published
 //     word, and an inheriting one then publishes what it found.  Only
 //     windows with pixels left to the carry wait;
 //   - the window is stored with 16-byte stores.
+// The ticket, the mask, the fill, the look-back and the stores are
+// qk::win's (qoipp_kernels.cuh), shared with E5 and E6.
 #include "qoipp_kernels.cuh"
 
 namespace {
 
-constexpr int kWin = 8192;         // pixels per window
-constexpr int kMaskWords = kWin / 32;
-constexpr int kReach = 63;
-constexpr int kThreads = 512;
+constexpr int kWin = qk::win::kWin;          // pixels per window
+constexpr int kThreads = qk::win::kThreads;
 constexpr int kProbesPer = 2;      // search probes per thread a round
 constexpr int kProbes = kThreads * kProbesPer;
 constexpr int kRowsPer = 4;        // rows per thread a tile
 constexpr int kTile = kThreads * kRowsPer;
-constexpr int kQuadsPer = kWin / 4 / kThreads;  // 16-byte stores a thread
 constexpr uint32_t kFull = 0xFFFFFFFFu;
-
-struct Shared {
-  uint32_t word[kWin];
-  uint32_t mask[kMaskWords];  // bit p % 32 of word p / 32: pixel p written
-  unsigned long long ticket;
-  uint32_t carry;
-};
 
 // The first row of `row` (Q rows, nondecreasing) with pb >= target, Q if
 // none.  All threads; every round narrows [lo, hi] to one gap between
@@ -80,47 +73,31 @@ __device__ long long first_at_least(const int32_t* __restrict__ row,
   return lo;
 }
 
-// Pixel p's nearest written pixel in the window at or before it, at most
-// kReach away, or -1.
-__device__ __forceinline__ int nearest(const uint32_t* mask, int p) {
-  const int k = p >> 5;
-  const uint32_t m0 = mask[k] & (kFull >> (31 - (p & 31)));
-  if (m0) return (k << 5) + 31 - __clz(m0);
-  const uint32_t m1 = k >= 1 ? mask[k - 1] : 0u;
-  if (m1) return ((k - 1) << 5) + 31 - __clz(m1);
-  const uint32_t m2 = k >= 2 ? mask[k - 2] : 0u;
-  const int src = m2 ? ((k - 2) << 5) + 31 - __clz(m2) : -1;
-  return src >= 0 && p - src <= kReach ? src : -1;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// Three blocks an SM: with qk::win's epilogue and no such bound the kernel
+// took 49 registers, two blocks an SM, and 13% more time at batch RGB
+// (PERF.md §6).
+__global__ void __launch_bounds__(kThreads, 3)
 place_fill_kernel(const int32_t* __restrict__ pb,
                   const uint32_t* __restrict__ emits,
                   uint32_t* __restrict__ out, unsigned long long* status,
-                  long long Q, int n_cap, long long nwin) {
-  __shared__ Shared s;
+                  long long Q, int n_cap) {
+  __shared__ qk::win::Window s;
   const int t = threadIdx.x;
   const int lane = t & 31;
-  if (t == 0) s.ticket = qk::take_ticket(status, gridDim.x);
-  for (int i = t; i < kMaskWords; i += kThreads) s.mask[i] = 0u;
-  __syncthreads();
-  const long long ticket = static_cast<long long>(s.ticket);
-  const long long b = ticket / nwin;
-  const int w0 = static_cast<int>(ticket % nwin) * kWin;
-  const int w_end = w0 + kWin;
-  const int32_t* prow = pb + b * Q;
-  const uint32_t* erow = emits + b * Q;
+  const qk::win::Span sp =
+      qk::win::begin(s, status, nullptr, pb, emits, Q, n_cap, false);
+  const int w0 = sp.w0, w_end = w0 + kWin;
 
   // place the writers of the window's rows
-  for (long long r0 = first_at_least(prow, Q, w0);; r0 += kTile) {
+  for (long long r0 = first_at_least(sp.prow, Q, w0);; r0 += kTile) {
     int32_t p[kRowsPer], nxt[kRowsPer];
     uint32_t e[kRowsPer];
 #pragma unroll
     for (int k = 0; k < kRowsPer; ++k) {
       const long long r = r0 + k * kThreads + t;
-      p[k] = r < Q ? prow[r] : n_cap;
-      e[k] = r < Q ? erow[r] : 0u;
-      nxt[k] = lane == 31 ? (r + 1 < Q ? prow[r + 1] : n_cap) : 0;
+      p[k] = r < Q ? sp.prow[r] : n_cap;
+      e[k] = r < Q ? sp.erow[r] : 0u;
+      nxt[k] = lane == 31 ? (r + 1 < Q ? sp.prow[r + 1] : n_cap) : 0;
     }
 #pragma unroll
     for (int k = 0; k < kRowsPer; ++k) {
@@ -136,45 +113,7 @@ place_fill_kernel(const int32_t* __restrict__ pb,
     if (!__syncthreads_or(t == kThreads - 1 && nxt[kRowsPer - 1] < w_end))
       break;
   }
-
-  const long long me = b * nwin + w0 / kWin;
-  const bool own = (s.mask[kMaskWords - 1] | s.mask[kMaskWords - 2]) != 0;
-  if (t == 0)
-    qk::publish(status, me, own,
-                own ? s.word[nearest(s.mask, kWin - 1)] : 0u);
-
-  uint4 q[kQuadsPer];
-  int left = 0;  // pixels of this thread left to the carry, as bits
-#pragma unroll
-  for (int j = 0; j < kQuadsPer; ++j) {
-    const int x = 4 * (t + j * kThreads);
-    uint32_t v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int src = nearest(s.mask, x + i);
-      v[i] = src >= 0 ? s.word[src] : 0u;
-      if (src < 0) left |= 1 << (4 * j + i);
-    }
-    q[j] = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  if (__syncthreads_or(left)) {
-    if (t == 0) {
-      s.carry = qk::walk_back(status, me, b * nwin);
-      if (!own) qk::publish(status, me, true, s.carry);
-    }
-    __syncthreads();
-    const uint32_t c = s.carry;
-#pragma unroll
-    for (int j = 0; j < kQuadsPer; ++j) {
-      if (left >> (4 * j) & 1) q[j].x = c;
-      if (left >> (4 * j + 1) & 1) q[j].y = c;
-      if (left >> (4 * j + 2) & 1) q[j].z = c;
-      if (left >> (4 * j + 3) & 1) q[j].w = c;
-    }
-  }
-  uint4* dst = reinterpret_cast<uint4*>(out + b * n_cap + w0);
-#pragma unroll
-  for (int j = 0; j < kQuadsPer; ++j) dst[t + j * kThreads] = q[j];
+  qk::win::finish<63>(s, sp, status, out, n_cap);
 }
 
 }  // namespace
@@ -185,13 +124,12 @@ place_fill_kernel(const int32_t* __restrict__ pb,
 QK_API int qk_place_fill(const void* pb, const void* emits, void* out,
                          void* status, int B, long long Q, long long n_cap,
                          void* stream) {
-  if (B < 1 || Q < 0 || n_cap < kWin || n_cap % kWin || n_cap >= (1ll << 31))
+  if (!qk::win::shape_ok(B, Q, n_cap))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nwin = n_cap / kWin;
-  place_fill_kernel<<<static_cast<unsigned>(B * nwin), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  place_fill_kernel<<<static_cast<unsigned>(B * (n_cap / kWin)), kThreads,
+                      0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(pb), static_cast<const uint32_t*>(emits),
       static_cast<uint32_t*>(out), static_cast<unsigned long long*>(status),
-      Q, static_cast<int>(n_cap), nwin);
+      Q, static_cast<int>(n_cap));
   return qk::launch_status();
 }

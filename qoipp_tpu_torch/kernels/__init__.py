@@ -30,7 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "qoipp_tpu_torch"
 LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
            "logfill.cu", "fields.cu", "place_window.cu", "place_fill2.cu",
-           "place_grouped.cu", "emit_window.cu", "probes.cu")
+           "place_grouped.cu", "place_narrow.cu", "place_variant.cu",
+           "emit_window.cu", "probes.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -72,8 +73,11 @@ _SIGNATURES = {
     "qk_place_variant": [_P] * 5 + [_I, _L, _L, _I, _I, _I, _P],
     # ..., n_cap, nbase, win, g, lr_mode, static_in, stream
     "qk_place_grouped": [_P] * 5 + [_I, _L, _L] + [_I] * 5 + [_P],
-    # resident blocks an SM, threads a block out: E3; E4 at win, g
+    # resident blocks an SM, threads a block out: E3, E5, E6 (full); E4 at
+    # win, g
     "qk_place_fill2_occupancy": [_P],
+    "qk_place_narrow_occupancy": [_P],
+    "qk_place_variant_occupancy": [_P],
     "qk_place_grouped_occupancy": [_I, _I, _P],
     # off, tlo, thn, base, out, B, C, out_cap, lanes, stream
     "qk_emit_window": [_P] * 5 + [_I, _L, _L, _I, _P],
@@ -154,6 +158,24 @@ def build(verbose: bool = False) -> str:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, LIB_PATH)  # atomic: no process loads half a library
     return report
+
+
+def sass(*names: str) -> str:
+    """The SASS (``cuobjdump -sass`` of the built library) of the kernels
+    whose entry names hold one of ``names``; builds the kernels first."""
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin"
+        / "cuobjdump")
+    library()
+    text = subprocess.run([tool, "-sass", str(LIB_PATH)], check=True,
+                          capture_output=True, text=True).stdout
+    out, keep = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            keep = any(n in line for n in names)
+        if keep:
+            out.append(line)
+    return "\n".join(out) + "\n"
 
 
 def library() -> ctypes.CDLL:

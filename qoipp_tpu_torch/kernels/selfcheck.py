@@ -57,7 +57,12 @@ bit-exact.  The cases:
               equal pb, rows with pb >= n_cap, a 62-pixel run crossing a
               window edge, an empty tail of three windows, a first pb > 0;
               E2 at every lanes, E5 at ns 1, 2, 4 and 64, E6 at every
-              do_dma / do_slabs / n_fill it takes; E3 also on every
+              do_dma / do_slabs / n_fill it takes; E5 also on
+              narrow_case at Q = 8,000 and 7,999 (a group inside a
+              window's last stripe, the next across the window edge),
+              E6 on reach_case at every n_fill (writers 2^n - 1, 2^n
+              and 2^n + 1 apart at every position of a mask word, at
+              the windows' first and last pixels); E3 also on every
               FILL2_CASES case: windows whose longest chunk is exactly 8
               and exactly 9, units whose second window has no writer (with
               the first window's last pixel owned and not), runs of units
@@ -647,25 +652,120 @@ def fill2_err(pb, emits, n_cap) -> int:
         place_kernel.place_fill_reference(pb, emits, n_cap))
 
 
+def _rows_at(rng, pixels, q, n_cap, dup=0.5):
+    """(q,) int64 sorted pb whose writers are exactly ``pixels`` (sorted,
+    distinct, below n_cap): each pixel gets one row, and with probability
+    ``dup`` one to three more rows before it at the same pb (rows that do
+    not write); the rows left sit at pb = n_cap."""
+    extra = np.where(rng.random(len(pixels)) < dup,
+                     rng.integers(1, 4, len(pixels)), 0)
+    pb = np.repeat(np.asarray(pixels, np.int64), 1 + extra)
+    assert pb.size <= q, (pb.size, q)
+    return np.concatenate([pb, np.full(q - pb.size, n_cap, np.int64)])
+
+
+def reach_case(n_fill: int, rng, device):
+    """(pb, emits, n_cap) of E6's reach at n_fill, R = 2**n_fill - 1: B =
+    2 images of 4 windows, Q a multiple of 128.  Consecutive writers lie R,
+    R + 1 or R + 2 pixels apart (the pixel before a writer is R - 1, R or
+    R + 1 from the one before it) or 1-70 apart, from a random offset, so
+    the reach ends on every position of a 32-pixel mask word and runs
+    across word edges.  Image 0 writes window 0's first pixel, window 1's
+    last pixel, and the pixel R before window 2's last with no writer
+    after it in the window (its last pixel is just reached); image 1 writes
+    the pixel R + 1 before window 0's last with none after it (its last
+    pixel takes the carry), no pixel of window 1, and window 2's first."""
+    win = place_kernel.WIN
+    r = (1 << n_fill) - 1
+    n_cap = 4 * win
+    images = []
+    for forced, clear in (({0, 2 * win - 1, 3 * win - 1 - r},
+                           [(3 * win - r, 3 * win)]),
+                          ({win - 2 - r, 2 * win},
+                           [(win - 1 - r, win), (win, 2 * win)])):
+        pos, x = set(), int(rng.integers(0, 40))
+        while x < n_cap:
+            pos.add(x)
+            x += int(rng.choice([r, r + 1, r + 2, int(rng.integers(1, 71))]))
+        pos = {x for x in pos if not any(a <= x < b for a, b in clear)}
+        images.append(np.array(sorted(pos | forced), np.int64))
+    assert {0, 31} <= {int(x + r) % 32 for img in images for x in img}
+    q = (max(2 * x.size for x in images) // 128 + 2) * 128
+    pb = np.stack([_rows_at(rng, x, q, n_cap) for x in images])
+    return (_t(pb.astype(np.int32), device), _t(_words(rng, pb.shape), device),
+            n_cap)
+
+
+# E5's pinned groups: (image, first row, its pb, rows 0-1 pixels each)
+# -- image 0: a group inside window 0's last stripe, and the next one
+# across the window edge; image 1: a group from 300 pixels before window
+# 2, and one inside window 2's last stripe with rows past n_cap after it
+NARROW_PINS = ((0, 3840, place_kernel.WIN - 92, True),
+               (1, 2048, 2 * place_kernel.WIN - 300, False),
+               (1, 5120, 3 * place_kernel.WIN - 100, True))
+
+
+def narrow_case(rng, q: int, device):
+    """(pb, emits, n_cap) of E5's edges: B = 2 images of Q = q rows (q >=
+    5,376, any q) over 3 windows.  Rows produce 0, 0, 1, 1 or 2 pixels,
+    one in a hundred a run of 5-62, so groups of 128 rows span a few
+    stripes, some more; at each of NARROW_PINS the row's pb jumps to the
+    pinned pixel and (True) the group's 128 rows produce 0 or 1 pixel, so
+    its writers span under 128 pixels: a span that the window's last
+    stripes clamp at any ns, and the group after it across the window
+    edge."""
+    win = place_kernel.WIN
+    n_cap = 3 * win
+    inc = rng.choice([0, 0, 1, 1, 2], (2, q))
+    runs = rng.random((2, q)) < 0.01
+    inc[runs] = rng.integers(5, 63, runs.sum())
+    for b, row, _, thin in NARROW_PINS:
+        if thin:
+            inc[b, row : row + 128] = rng.integers(0, 2, 128)
+    pb = np.cumsum(inc, axis=1) - inc
+    for b, row, pixel, _ in NARROW_PINS:
+        assert pb[b, row] <= pixel
+        pb[b, row:] += pixel - pb[b, row]
+    return (_t(pb.astype(np.int32), device), _t(_words(rng, pb.shape), device),
+            n_cap)
+
+
 def _place_fill_narrow(device) -> int:
+    """E5 at ns 1, 2, 4 and 64 on the windowed cases and on narrow_case at
+    Q = 8,000 (16-byte row loads) and 7,999 (Q % 4 != 0: scalar loads)."""
     pw = place_window
-    return max(_windowed(np.random.default_rng(10), 4000, device,
-                         lambda pb, em, n, ns=ns: pw.place_fill_narrow(
-                             pb, em, pw.window_base_rows(pb, n), n, ns=ns))
-               for ns in (1, 2, 4, pw.SW))
+    rng = np.random.default_rng(17)
+    cases = [narrow_case(rng, q, device) for q in (8000, 7999)]
+    err = 0
+    for ns in (1, 2, 4, pw.SW):
+        call = lambda pb, em, n, ns=ns: pw.place_fill_narrow(
+            pb, em, pw.window_base_rows(pb, n), n, ns=ns)
+        err = max([err, _windowed(np.random.default_rng(10), 4000, device,
+                                  call)]
+                  + [max_abs_err(call(pb, em, n),
+                                 place_kernel.place_fill_reference(pb, em, n))
+                     for pb, em, n in cases])
+    return err
 
 
 def _place_variant(device) -> int:
+    """E6's 21 instantiations (do_dma, do_slabs, n_fill) on the windowed
+    cases and on reach_case at every n_fill."""
     pw = place_window
+    rng = np.random.default_rng(18)
+    reach = [reach_case(n, rng, device) for n in range(7)]
     err = 0
     for dma, slabs in ((True, True), (True, False), (False, False)):
         for n_fill in range(7):
-            err = max(err, _windowed(
-                np.random.default_rng(11), 4224, device,
-                lambda pb, em, n: pw.place_variant(
-                    pb, em, pw.window_base_rows(pb, n), n, do_dma=dma,
-                    do_slabs=slabs, n_fill=n_fill),
-                n_fill, slabs))
+            call = lambda pb, em, n: pw.place_variant(
+                pb, em, pw.window_base_rows(pb, n), n, do_dma=dma,
+                do_slabs=slabs, n_fill=n_fill)
+            err = max([err, _windowed(np.random.default_rng(11), 4224,
+                                      device, call, n_fill, slabs)]
+                      + [max_abs_err(call(pb, em, n),
+                                     place_kernel.place_fill_reference(
+                                         pb, em, n, n_fill, slabs))
+                         for pb, em, n in reach])
     return err
 
 

@@ -1,5 +1,6 @@
-"""E2-E6: the windowed placement experiments (csrc/place_window.cu: E2,
-E5, E6; csrc/place_fill2.cu: E3; csrc/place_grouped.cu: E4).
+"""E2-E6: the windowed placement experiments (csrc/place_window.cu: E2;
+csrc/place_fill2.cu: E3; csrc/place_grouped.cu: E4; csrc/place_narrow.cu:
+E5; csrc/place_variant.cu: E6).
 
 Four TPU layout experiments of the JAX package's K2 (``benchmarks/``
 ``expt_place_wide``, ``expt_place2``, ``expt_place_narrow``,
@@ -52,15 +53,19 @@ REACH = 63  # E4's fill reach: six log-shift passes
 
 def launch_shape(name: str, win: int = WIN, g: int = 1) -> tuple[int, int]:
     """(threads a block, resident blocks an SM) of E3 (``name``
-    "place_fill2") or of E4 ("place_grouped", lr_mode dyn at win and g),
-    read from the built library (the CUDA occupancy calculator); builds
-    the kernels on first use."""
+    "place_fill2"), E5 ("place_fill_narrow"), E6 ("place_variant", the full
+    variant) or E4 ("place_grouped", lr_mode dyn at win and g), read from
+    the built library (the CUDA occupancy calculator); builds the kernels
+    on first use."""
     lib = kernels.library()
     threads = ctypes.c_int()
-    if name == "place_fill2":
-        n = lib.qk_place_fill2_occupancy(ctypes.byref(threads))
-    else:
+    if name == "place_grouped":
         n = lib.qk_place_grouped_occupancy(win, g, ctypes.byref(threads))
+    else:
+        entry = {"place_fill2": "qk_place_fill2_occupancy",
+                 "place_fill_narrow": "qk_place_narrow_occupancy",
+                 "place_variant": "qk_place_variant_occupancy"}[name]
+        n = getattr(lib, entry)(ctypes.byref(threads))
     if n <= 0:
         raise RuntimeError(f"{name}: occupancy query failed: CUDA error {-n}")
     return threads.value, n
@@ -216,9 +221,10 @@ def place_fill2(pb, emits, base_step, n_cap: int):
 
 def place_fill_narrow(pb, emits, base_step, n_cap: int, ns: int = 4):
     """E5: windowed placement where each 128-row group whose writers span
-    at most ``ns`` stripes of 128 pixels is written output-driven (threads
-    over the span search the group), and wider groups row-driven.
-    base_step from window_base_rows.  Returns (B, n_cap) int32."""
+    at most ``ns`` stripes of 128 pixels is written output-driven (the
+    span's mask words by warp reductions), and wider groups row-driven.
+    Any Q (16-byte row loads where Q % 4 == 0), base_step from
+    window_base_rows.  Returns (B, n_cap) int32."""
     _require(1 <= ns <= SW, f"ns must be in 1..{SW}, got {ns}")
     if pb.device.type == "cpu":
         return place_fill_reference(pb, emits, n_cap)

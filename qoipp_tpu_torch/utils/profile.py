@@ -2,30 +2,34 @@
 entry point at the smoke run's sizes, summed by kernel group.
 
     python -m qoipp_tpu_torch.utils.profile      # on a machine with a card
+    python -m qoipp_tpu_torch.utils.profile --paths E6 --calls 20
 
-For each path it prints, per call (3 calls after 3 warmups; 30, marked,
-where the profiler kept no device event of the 3): the device busy time
-(the union of kernel and copy intervals), the span from the first to the
-last of them, the idle share of that span, and the busy time by kernel
-group with launches.  The inputs are the smoke run's:
+For each path (``--paths``: those whose label holds the text) it
+prints, per call (``--calls``, 3 by default, after 3 warmups; ten times
+as many, marked, where the profiler kept no device event of those): the
+device busy time (the union of kernel and copy intervals), the span from
+the first to the last of them, the idle share of that span, and the busy
+time by kernel group with launches.  The inputs are the smoke run's:
 BatchPipeline on 16 RGB and 8 RGBA 1920x1088 images, SplitDecoder(96) on
-the 4096x4096 sparse and the 1920x1088 dense stream, the one-shot
-codec on one RGB and one RGBA 1920x1088 image, and the streaming codec on
-the 4096x4096 image (decode in 1 MB and 4 MB windows, encode in 2^18-pixel
-windows at one lane and in 2^20-pixel windows at 16 lanes) and on the RGBA
-image (encode in 2^18-pixel windows at 1 and 8 lanes), and the windowed
-placement kernels on their experiments' main inputs (E2 at each lanes, E5
-at ns 2 and 4, E6 full, no-dma and bare, and K2 on the same 8 x 524,288
-photo-like rows; E3 and K2 on the 128 x 284,928 bench-like rows), E4's
-exact variant (8192-pixel windows, G=1, dyn) beside K2 on its script's
-128 x 286,720 rows, and E7 at 256 lanes beside K4 on its script's 8 x
-2^17 rows, base rows computed outside the call; and the profile_r2
-probes at their own sizes, E8 at 4,096 and 65,536 steps and E9 at 2,048
-blocks.
+the 4096x4096 sparse and the 1920x1088 dense stream, the one-shot codec
+on one RGB and one RGBA 1920x1088 image, and the streaming codec on the
+4096x4096 image (decode in 1 MB and 4 MB windows, encode in 2^18-pixel
+windows at one lane and in 2^20-pixel windows at 16 lanes) and on the
+RGBA image (encode in 2^18-pixel windows at 1 and 8 lanes), and the
+windowed placement kernels on their experiments' main inputs (E2 at
+each lanes, E5 at ns 2 and 4, E6 at each kernel its experiment runs --
+full, no-fill, fill-3, no-slabs, no-dma, dma-only and bare -- and K2 on
+the same 8 x 524,288 photo-like rows; E3 and K2 on the 128 x 284,928
+bench-like rows), E4's exact variant (8192-pixel windows, G=1, dyn)
+beside K2 on its script's 128 x 286,720 rows, and E7 at 256 lanes beside
+K4 on its script's 8 x 2^17 rows, base rows computed outside the call;
+and the profile_r2 probes at their own sizes, E8 at 4,096 and 65,536
+steps and E9 at 2,048 blocks.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import numpy as np
@@ -195,8 +199,15 @@ def _window_paths(dev):
         paths.append((f"E5 place_fill_narrow ns={ns} {photo}",
                       lambda k=ns: PW.place_fill_narrow(pb, em, base, n,
                                                         ns=k)))
-    for what, kw in (("full", {}),
+    # E6's experiment variants less the ones that differ only in prec (one
+    # kernel): each stage's device time comes by difference, the row reads
+    # dma-only - bare, the fill no-slabs - dma-only, the placement full -
+    # no-slabs
+    for what, kw in (("full", {}), ("no-fill", dict(n_fill=0)),
+                     ("fill-3", dict(n_fill=3)),
+                     ("no-slabs", dict(do_slabs=False)),
                      ("no-dma", dict(do_dma=False, do_slabs=False)),
+                     ("dma-only", dict(do_slabs=False, n_fill=0)),
                      ("bare", dict(do_dma=False, do_slabs=False, n_fill=0))):
         paths.append((f"E6 place_variant {what} {photo}",
                       lambda kw=kw: PW.place_variant(pb, em, base, n, **kw)))
@@ -247,7 +258,13 @@ def _e4_e7_paths(dev):
          lambda tv=profile_r2.onehot_inputs(dev): probes.onehot_place(*tv))]
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paths", default="",
+                    help="profile only the paths whose label holds this")
+    ap.add_argument("--calls", type=int, default=3,
+                    help="traced calls a path (after 3 warmups)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device visible")
     card = subprocess.run(
@@ -256,10 +273,12 @@ def main():
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     for label, fn in _paths(torch.device("cuda")):
-        r = profile_path(fn)
-        parts = "; ".join(f"{g} {ms:.3f} ({n:g})"
+        if args.paths not in label:
+            continue
+        r = profile_path(fn, calls=args.calls)
+        parts = "; ".join(f"{g} {ms:.4f} ({n:g})"
                           for g, (ms, n) in r["groups"].items())
-        traced = "" if r["calls"] == 3 else f" ({r['calls']} calls)"
+        traced = "" if r["calls"] == args.calls else f" ({r['calls']} calls)"
         print(f"{label}{traced}: busy {r['busy_ms']:.3f} ms, span "
               f"{r['span_ms']:.3f} ms, idle share {r['idle']:.3f} | "
               f"{parts}", flush=True)

@@ -3,8 +3,10 @@ PyTorch version (the edge cases of qoipp_tpu_torch.kernels.selfcheck, as
 chip_smoke.py's phase 2), and the batch pipeline, the split decoder, the
 one-shot codec and the streaming codec at a small size against the port's
 oracle, K2 and E1 across many blocks (selfcheck.place_fill_cases and
-fields_segments), E3 on selfcheck.FILL2_CASES and E4 at every
-selfcheck.GROUPED_SHAPES, and the experiment scripts (E2-E7, and E8/E9 in
+fields_segments), E3 on selfcheck.FILL2_CASES, E4 at every
+selfcheck.GROUPED_SHAPES, E5 on selfcheck.narrow_case at every ns the
+selfcheck takes and E6's instantiations on selfcheck.reach_case at every
+n_fill, and the experiment scripts (E2-E7, and E8/E9 in
 profile_r2) at a small size; and K1 and K5 against their plain versions
 on the whole output over no rows and tile-edge row counts, lane counts,
 both row layouts and one-class, reset, random and palette rows; K3 and K6
@@ -95,6 +97,50 @@ def test_place_fill2_launch_shape(cuda):
 
     threads, per_sm = place_window.launch_shape("place_fill2")
     assert threads > 0 and per_sm >= 1
+
+
+@pytest.mark.parametrize("q", [8000, 7999])
+@pytest.mark.parametrize("ns", [1, 2, 4, 64])
+def test_place_narrow_cases_match_plain_version(cuda, ns, q):
+    """E5 on the whole output: a group inside a window's last stripe (the
+    span's clamp), the next one across the window edge, rows past n_cap;
+    16-byte row loads (Q % 4 == 0) and scalar ones."""
+    from qoipp_tpu_torch.ops import place_kernel, place_window
+
+    pb, emits, n_cap = selfcheck.narrow_case(np.random.default_rng(ns), q,
+                                             cuda)
+    got = place_window.place_fill_narrow(
+        pb, emits, place_window.window_base_rows(pb, n_cap), n_cap, ns=ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, place_kernel.place_fill_reference(pb, emits,
+                                                              n_cap))
+
+
+@pytest.mark.parametrize("n_fill", range(7))
+def test_place_variant_reach_cases_match_plain_version(cuda, n_fill):
+    """E6's three (do_dma, do_slabs) instantiations at n_fill on the whole
+    output, on writers R, R + 1 and R + 2 apart (R = 2**n_fill - 1) at
+    every position of a mask word and at the windows' first and last
+    pixels."""
+    from qoipp_tpu_torch.ops import place_kernel, place_window
+
+    pb, emits, n_cap = selfcheck.reach_case(
+        n_fill, np.random.default_rng(n_fill), cuda)
+    base = place_window.window_base_rows(pb, n_cap)
+    for dma, slabs in ((True, True), (True, False), (False, False)):
+        got = place_window.place_variant(pb, emits, base, n_cap, do_dma=dma,
+                                         do_slabs=slabs, n_fill=n_fill)
+        torch.cuda.synchronize()
+        assert torch.equal(got, place_kernel.place_fill_reference(
+            pb, emits, n_cap, n_fill, slabs))
+
+
+@pytest.mark.parametrize("name", ["place_fill_narrow", "place_variant"])
+def test_place_window_launch_shapes(cuda, name):
+    from qoipp_tpu_torch.ops import place_window
+
+    threads, per_sm = place_window.launch_shape(name)
+    assert threads == 512 and per_sm >= 1
 
 
 @pytest.mark.parametrize("b,nb", selfcheck.FIELDS_SEGMENT_SHAPES)

@@ -169,6 +169,57 @@ def test_place_variant_matches_jax(name):
         assert not got.any()
 
 
+@pytest.mark.parametrize("n_fill", range(7))
+def test_place_variant_reach_boundary_matches_jax(n_fill):
+    # writers R, R + 1 and R + 2 apart (R = 2**n_fill - 1) at every
+    # position of a mask word, at the windows' first and last pixels
+    # (selfcheck.reach_case), the full variant at n_fill against the JAX
+    # kernel's six-pass fill cut to n_fill passes
+    pb, emits, n_cap = selfcheck.reach_case(
+        n_fill, np.random.default_rng(30 + n_fill), "cpu")
+    r, win = (1 << n_fill) - 1, PW.WIN
+    with pltpu.force_tpu_interpret_mode():
+        want = _script("expt_place_fixed").place_variant(
+            jnp.asarray(pb.numpy()), jnp.asarray(words_to_numpy(emits)),
+            jpk.window_base_rows(jnp.asarray(pb.numpy()), n_cap), n_cap,
+            n_fill=n_fill)
+    got = PW.place_variant(pb, emits, PW.window_base_rows(pb, n_cap), n_cap,
+                           n_fill=n_fill)
+    _same(want, got)
+    # image 0: window 2's last pixel is just reached from the writer R
+    # before it; image 1: window 0's last writer lies R + 1 before its last
+    # pixel, which takes the carry (0 in an image's first window), and R
+    # before the pixel before it, which it reaches
+    last = (pb[0] == 3 * win - 1 - r).nonzero().max()
+    assert got[0, 3 * win - 1] == emits[0, last]
+    last = (pb[1] == win - 2 - r).nonzero().max()
+    assert got[1, win - 2] == emits[1, last] and got[1, win - 1] == 0
+
+
+@pytest.mark.parametrize("q", [8000, 7999])
+@pytest.mark.parametrize("ns", [1, 2, 4, PW.SW])
+def test_place_fill_narrow_edges_match_jax(ns, q):
+    # selfcheck.narrow_case: a 128-row group inside a window's last stripe
+    # (its span clamps to the window's last ns stripes), the next group
+    # across the window edge, rows past n_cap; Q % 4 == 0 and not
+    pb, emits, n_cap = selfcheck.narrow_case(np.random.default_rng(ns), q,
+                                             "cpu")
+    for b, row, pixel, thin in selfcheck.NARROW_PINS:
+        assert pb[b, row] == pixel
+        if thin:
+            span = pb[b, row : row + PW.SLAB]
+            assert span[-1] < (pixel // PW.WIN + 1) * PW.WIN
+            assert (span // 128 == PW.SW * (pixel // PW.WIN + 1) - 1).all()
+    with pltpu.force_tpu_interpret_mode():
+        want = _script("expt_place_narrow").place_fill_narrow(
+            jnp.asarray(pb.numpy()), jnp.asarray(words_to_numpy(emits)),
+            jpk.window_base_rows(jnp.asarray(pb.numpy()), n_cap),
+            n_cap=n_cap, ns=ns)
+    got = PW.place_fill_narrow(pb, emits, PW.window_base_rows(pb, n_cap),
+                               n_cap, ns=ns)
+    _same(want, got)
+
+
 def test_windowed_reference_is_the_jax_k2_whole_output():
     # rows with pb >= n_cap, runs of 1..62, a tail of empty windows
     rng = np.random.default_rng(3)
