@@ -47,8 +47,12 @@
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
-   inputs, E3-E6 also in device time beside K2's, with their launch
-   configuration and ptxas report, E3 with the share of its windows that
+   inputs, E2-E6 also in device time beside K2's and E7 beside K4's, with
+   their launch configuration and ptxas report, E2 and E7 beside their
+   first build's device time, E7 also on its script's rows at fill 0.999,
+   whose trailing run of equal offs is ~130 rows, not ~32,770, and with
+   the bound of what it must move beside that of every row; E3 with the
+   share of its windows that
    take the long search, E6 with the global loads in the SASS of each
    instantiation, so that those which read rows they do not place show
    that they still read them; E8 and E9 from the probes' run, beside their
@@ -131,11 +135,13 @@ PLAIN_REPLAY_ROWS = 4096  # the plain replay loop runs 0.2-0.4 ms per row
 # the kernels as first built, ms a call at the shapes phase 5 times, on an
 # H100 80GB HBM3 at 700 W (PERF.md §6): K1 and K5 one thread a lane, 32
 # lanes a block; K2 a binary search a pixel; E1 one block a row; K3 (the
-# whole compact_rows call) a torch.cumsum and a scatter a row
+# whole compact_rows call) a torch.cumsum and a scatter a row; E2 and E7
+# (device ms) lanes rows staged a step with two block syncs each
 FIRST_BUILD_MS = {"replay": 51.143, "replay_summary": 2.113,
                   "place_fill batch": 1.158, "place_fill split": 0.722,
                   "fields 1 x 262144": 0.4419, "fields 16 x 65536": 0.1135,
-                  "compact": 3.469}
+                  "compact": 3.469, "place_wide": 0.0818,
+                  "emit_window": 0.0915}
 # dependent instructions from one state row's value to the next in the
 # replay chain thread's loop as built (python -m
 # qoipp_tpu_torch.benchmarks.replay_probe --sass FILE; PERF.md): this
@@ -933,16 +939,19 @@ def phase5_window(name, results, launches, dev, card):
     b, q = pb.shape
     log(f"phase 5: {name} ({case}: {b} x {q} rows -> {n_cap} px): "
         f"{ms:.4f} ms, K2 {k2_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
-    extra = {}
-    if name != "place_wide":
-        windows = b * n_cap // place_kernel.WIN
-        extra = _beside_k2(
-            name, call, k2, "E2/E3/E5/E6 windowed placement",
-            windows // 2 if name == "place_fill2" else windows,
-            {"place_fill2": "place_fill2_kernel",
+    windows = b * n_cap // place_kernel.WIN
+    blocks = windows // 2 if name == "place_fill2" else windows
+    entry = {"place_wide": f"place_wide_kernelILi{lanes}E",
+             "place_fill2": "place_fill2_kernel",
              "place_fill_narrow": "place_narrow_kernel",
-             "place_variant": "place_variant_kernelILb1ELb1ELi6E"}[name],
-            card)
+             "place_variant": "place_variant_kernelILb1ELb1ELi6E"}[name]
+    extra = _beside_k2(name, call, k2, "E2/E3/E5/E6 windowed placement",
+                       blocks, entry, card)
+    if name == "place_wide":
+        extra.update(launch=_launch(blocks, place_window.launch_shape(name)),
+                     ptxas=ptxas_of(entry))
+        log(f"phase 5: {name}: device {extra['device_ms']:.4f} ms, first "
+            f"build device {FIRST_BUILD_MS[name]} ms on {card}")
     if name == "place_fill2":
         extra["long_fill_share"] = expt_place2.long_fill_share(pb, n_cap)
         log(f"phase 5: place_fill2: long search in "
@@ -980,17 +989,23 @@ def log_variant_loads():
                    "lost its row loads")
 
 
+def _launch(blocks, shape):
+    """A launch configuration as text: blocks, (threads, resident blocks
+    an SM)."""
+    threads, per_sm = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (f"{blocks} blocks of {threads} threads, {per_sm} resident an "
+            f"SM on {sms} SMs ({blocks / (per_sm * sms):.1f} waves)")
+
+
 def _beside_k2(name, call, k2, group, blocks, entry, card):
-    """E3-E6's device time (profiler group ``group``) and K2's on the
+    """E2-E6's device time (profiler group ``group``) and K2's on the
     same input, returned as kernel row fields; logged with the kernel's
     launch configuration and ptxas report (its kernel entries whose names
     hold ``entry``), which stay out of the row."""
     dev_ms = device_ms(call, group)
     k2_dev_ms = device_ms(k2, "K2 place_fill")
-    threads, per_sm = place_window.launch_shape(name)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    launch = (f"{blocks} blocks of {threads} threads, {per_sm} resident an "
-              f"SM on {sms} SMs ({blocks / (per_sm * sms):.1f} waves)")
+    launch = _launch(blocks, place_window.launch_shape(name))
     log(f"phase 5: {name}: device {dev_ms:.4f} ms, K2 device "
         f"{k2_dev_ms:.4f} ms ({dev_ms / k2_dev_ms:.3f}x K2); launch: "
         f"{launch}; ptxas: {ptxas_of(entry)}; on {card}")
@@ -1044,33 +1059,79 @@ def phase5_place_grouped(results, launches, dev, card):
         variants=_variants(rows), **extra)
 
 
-def phase5_emit_window(results, launches, dev, card):
-    """E7 at its wrapper's defaults (256 lanes) on its script's input
-    against the plain version, timed beside K4 and the plain version, base
-    rows outside the timed call; bound: 12 bytes read per row, 4 written
-    per output byte."""
+def _emit_inputs(dev, fill):
+    """E7's script input at 8 x 2^17 rows and ``fill``: (off, tlo, thn,
+    out_cap, base at 256 lanes)."""
     off_np, tlo_np, thn_np, out_cap = expt_emit_wide.gen_inputs(
-        np.random.default_rng(0), 8, 1 << 17)
+        np.random.default_rng(0), 8, 1 << 17, fill=fill)
     off = torch.from_numpy(off_np).to(dev)
     tlo, thn = (torch.from_numpy(x.view(np.int32)).to(dev)
                 for x in (tlo_np, thn_np))
-    base = emit_window.window_base_rows_w(off, out_cap, 256)
+    return (off, tlo, thn, out_cap,
+            emit_window.window_base_rows_w(off, out_cap, 256))
+
+
+def emit_needs(off, out_cap):
+    """(bytes E7 must move, bytes of every row) on off (B, C): 12 read a
+    row before each image's trailing run of equal offs and for the run's
+    last row (only the last row of a run writes), 4 written an output
+    byte; and 12 a row of every row with the same output."""
+    o = off.cpu().numpy()
+    b, c = o.shape
+    needed = sum(c - int((r == r[-1]).sum()) + 1 for r in o)
+    out = 4 * b * out_cap
+    return 12 * needed + out, 12 * b * c + out
+
+
+def phase5_emit_window(results, launches, dev, card):
+    """E7 at its wrapper's defaults (256 lanes) on its script's input
+    against the plain version, timed (event and device) beside K4 and the
+    plain version, base rows outside the timed call; and at fill 0.999,
+    where the trailing run of equal offs is ~130 rows, not ~32,770.
+    bound: what it must move (emit_needs), the bound of every row
+    logged."""
+    off, tlo, thn, out_cap, base = _emit_inputs(dev, 0.75)
     call = lambda: emit_window.emit_wide(off, tlo, thn, base, out_cap)
     plain = lambda: emit_window.emit_wide_reference(off, tlo, thn, out_cap)
     err = selfcheck.max_abs_err(call(), plain())
     expect(err == 0, "emit_window disagrees with its plain version")
     plain_ms = timed_ms(plain)
     ms = timed_ms(call)
-    k4_ms = timed_ms(lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap))
+    k4 = lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap)
+    k4_ms = timed_ms(k4)
+    dev_ms = device_ms(call, "E7 emit_wide")
+    k4_dev_ms = device_ms(k4, "K4 emit")
     b, c = off.shape
+    needs, every_row = emit_needs(off, out_cap)
+    full = _emit_inputs(dev, 0.999)
+    full_call = lambda: emit_window.emit_wide(*full[:3], full[4], full[3])
+    err = max(err, selfcheck.max_abs_err(
+        full_call(), emit_window.emit_wide_reference(*full[:4])))
+    expect(err == 0, "emit_window disagrees with its plain version at "
+           "fill 0.999")
+    full_ms, full_dev_ms = timed_ms(full_call), device_ms(
+        full_call, "E7 emit_wide")
+    launch = _launch(b * out_cap // emit_window.WIN,
+                     emit_window.launch_shape(256))
+    entry = "emit_window_kernelILi256E"
     log(f"phase 5: emit_window (8 x {c} rows -> {out_cap} bytes): "
-        f"{ms:.4f} ms, K4 {k4_ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+        f"{ms:.4f} ms, device {dev_ms:.4f} ms (first build device "
+        f"{FIRST_BUILD_MS['emit_window']}), K4 {k4_ms:.4f} ms, K4 device "
+        f"{k4_dev_ms:.4f} ms, plain {plain_ms:.4f} ms; at fill 0.999 "
+        f"({full[0].shape[1]} rows -> {full[3]} bytes) {full_ms:.4f} ms, "
+        f"device {full_dev_ms:.4f} ms ({dev_ms / full_dev_ms:.3f}x); bound "
+        f"{bound(needs, 0)[0] * 1e3:.5f} ms ({needs} bytes it must move), "
+        f"{bound(every_row, 0)[0] * 1e3:.5f} ms ({every_row} bytes with "
+        f"every row); launch: {launch}; ptxas: {ptxas_of(entry)}; on "
+        f"{card}")
     rows = results["emit_window"]
     return _kernel_row(
         "emit_window", launches["emit_window"], _worst(err, rows), ms,
-        plain_ms, 12 * b * c + 4 * b * out_cap,
-        OPS_PER_ELEMENT["emit"] * b * out_cap, rows=c, images=b,
-        out_cap=out_cap, k4_ms=k4_ms, variants=_variants(rows))
+        plain_ms, needs, OPS_PER_ELEMENT["emit"] * b * out_cap, rows=c,
+        images=b, out_cap=out_cap, device_ms=dev_ms, k4_ms=k4_ms,
+        k4_device_ms=k4_dev_ms, ms_fill999=full_ms,
+        device_ms_fill999=full_dev_ms, launch=launch, ptxas=ptxas_of(entry),
+        variants=_variants(rows))
 
 
 def phase5_probes(results, launches, card):

@@ -3,8 +3,8 @@
 
 Counterpart of the repository's ``benchmarks/expt_emit_wide.py``, which
 asked whether visiting two or four 128-row slabs at once cut the TPU emit
-kernel's per-visit cost.  Here ``lanes`` is the number of candidate rows
-one block stages into shared memory per step (ops/emit_window.emit_wide);
+kernel's per-visit cost.  Here ``lanes`` is base_step's slab, the unit
+of each window's candidate rows (ops/emit_window.emit_wide);
 ``hoist`` shaped the TPU kernel's vector code only and launches the same
 kernel.  Every variant is held against the plain version (K4's) and the
 port's K4 on the whole output, then timed beside K4.

@@ -4,9 +4,9 @@
 Counterpart of the repository's ``benchmarks/expt_place_wide.py``, which
 asked whether visiting two or four 128-row slabs at once (and hoisting
 the per-row mask arithmetic) cut the TPU kernel's per-visit cost.  Here
-``lanes`` is the number of candidate rows one block stages into shared
-memory per step (ops/place_window.place_wide); ``hoist`` shaped the TPU
-kernel's vector code only and launches the same kernel.
+``lanes`` is base_step's slab, the unit of each window's candidate rows
+(ops/place_window.place_wide, csrc/place_window.cu); ``hoist`` shaped the
+TPU kernel's vector code only and launches the same kernel.
 
     python -m qoipp_tpu_torch.benchmarks.expt_place_wide [-b 8] [--rows 524288]
 """

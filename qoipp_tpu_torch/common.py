@@ -136,9 +136,11 @@ def count_bytes(desc: Desc) -> Result[int]:
 
 def worst_size(desc: Desc) -> Result[int]:
     """Worst-case encoded size: every pixel uncompressed plus its tag
-    byte, the header and the end marker."""
-    if not is_valid(desc):
-        return Result(error=Error.INVALID_DESC)
+    byte, the header and the end marker; count_bytes' errors where the
+    raw image already overflows size_t."""
+    raw = count_bytes(desc)
+    if not raw:
+        return Result.err(raw.error())
     return Result((int(desc.channels) + 1) * desc.width * desc.height
                   + HEADER_SIZE + END_MARKER_SIZE)
 

@@ -93,12 +93,12 @@ __device__ __forceinline__ void quad_nearest(const uint32_t* mask, int x,
   }
 }
 
-// ---- K2, E5 and E6: one window a block (place_fill.cu, place_narrow.cu,
-// place_variant.cu) ----
+// ---- K2, E2, E5 and E6: one window a block (place_fill.cu,
+// place_window.cu, place_narrow.cu, place_variant.cu) ----
 //
 // A block takes its window from the ticket (begin), reads the window's
-// candidate rows (E5, E6: base_step's slabs base[w] .. base[w + 1], both
-// included, cut at Q) a 128-row group a warp at a time, four consecutive
+// candidate rows (E2, E5, E6: base_step's slabs base[w] .. base[w + 1],
+// both included, cut at Q) a 128-row group a warp at a time, four consecutive
 // rows a lane (16-byte loads where Q % 4 == 0 and the rows are 16-byte
 // aligned), with the next kStages - 1 groups of the warp in flight in
 // registers while one is placed (for_each_group; K2 searches and reads
@@ -106,13 +106,13 @@ __device__ __forceinline__ void quad_nearest(const uint32_t* mask, int x,
 // their bit in a shared mask; only the mask is zeroed.  After one block
 // sync (finish) the fill is quad_nearest over the mask, the carry a
 // decoupled look-back, the stores 16 bytes a thread.  No block sync while
-// E5 and E6 place rows: a warp streams its own groups.
+// E2, E5 and E6 place rows: a warp streams its own groups.
 namespace win {
 
 constexpr int kWin = 8192;  // pixels per window
 constexpr int kMaskWords = kWin / 32;
 constexpr int kStripes = kWin / 128;  // 128-pixel stripes (E5's span unit)
-constexpr int kSlab = 128;            // rows per base_step slab
+constexpr int kSlab = 128;  // rows per base_step slab (E2: its lanes)
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 128;  // rows a warp places at once, four a lane
@@ -139,7 +139,9 @@ struct Span {
 };
 
 // Take a ticket, zero the mask, and (with `rows`) read the window's
-// candidate row range from base.  Ends on a barrier.
+// candidate row range from base, which counts kSlabRows-row slabs.  Ends
+// on a barrier.
+template <int kSlabRows = kSlab>
 __device__ __forceinline__ Span begin(Window& s, unsigned long long* status,
                                       const int32_t* base, const int32_t* pb,
                                       const uint32_t* em, long long Q,
@@ -154,8 +156,8 @@ __device__ __forceinline__ Span begin(Window& s, unsigned long long* status,
           em + b * Q};
   if (rows) {
     const int32_t* bb = base + b * (units + 1) + u;
-    sp.lo = static_cast<long long>(bb[0]) * kSlab;
-    sp.hi = min((static_cast<long long>(bb[1]) + 1) * kSlab, Q);
+    sp.lo = static_cast<long long>(bb[0]) * kSlabRows;
+    sp.hi = min((static_cast<long long>(bb[1]) + 1) * kSlabRows, Q);
   }
   return sp;
 }
@@ -312,7 +314,7 @@ __device__ __forceinline__ void finish(Window& s, const Span& sp,
   for (int j = 0; j < kQuads; ++j) dst[t + j * kThreads] = q[j];
 }
 
-// The checks every K2/E5/E6 entry makes: B >= 1, Q >= 0, n_cap a positive
+// The checks every K2/E2/E5/E6 entry makes: B >= 1, Q >= 0, n_cap a positive
 // multiple of kWin below 2^31.
 inline bool shape_ok(int B, long long Q, long long n_cap) {
   return B >= 1 && Q >= 0 && n_cap >= kWin && n_cap % kWin == 0 &&

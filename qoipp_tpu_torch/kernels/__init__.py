@@ -79,6 +79,9 @@ _SIGNATURES = {
     "qk_place_narrow_occupancy": [_P],
     "qk_place_variant_occupancy": [_P],
     "qk_place_grouped_occupancy": [_I, _I, _P],
+    # ... of E2 and E7 at lanes
+    "qk_place_wide_occupancy": [_I, _P],
+    "qk_emit_window_occupancy": [_I, _P],
     # off, tlo, thn, base, out, B, C, out_cap, lanes, stream
     "qk_emit_window": [_P] * 5 + [_I, _L, _L, _I, _P],
     # x, y, steps, stream

@@ -57,9 +57,10 @@ bit-exact.  The cases:
               equal pb, rows with pb >= n_cap, a 62-pixel run crossing a
               window edge, an empty tail of three windows, a first pb > 0;
               E2 at every lanes, E5 at ns 1, 2, 4 and 64, E6 at every
-              do_dma / do_slabs / n_fill it takes; E5 also on
+              do_dma / do_slabs / n_fill it takes; E2 and E5 also on
               narrow_case at Q = 8,000 and 7,999 (a group inside a
-              window's last stripe, the next across the window edge),
+              window's last stripe, the next across the window edge), E2
+              also on reach_case at reach 63,
               E6 on reach_case at every n_fill (writers 2^n - 1, 2^n
               and 2^n + 1 apart at every position of a mask word, at
               the windows' first and last pixels); E3 also on every
@@ -82,7 +83,15 @@ bit-exact.  The cases:
               lanes, rows of 1-6 bytes and gaps of 7-8, a row across a
               window edge, a run of 20,000 equal-off rows (longer than the
               TPU kernel's lenr slabs at every lanes), rows at and past
-              out_cap;
+              out_cap; and every EMIT_RUN_CASES case, images whose last
+              3,000 or more rows share one offset (the kernel reads only
+              the rows before such a trailing run and its last row): the
+              run mid-window, at a window's first byte, at one of its last
+              5 bytes (the run's last row crosses the edge), at and past
+              out_cap (it writes nothing), with C ragged and odd (scalar
+              loads), and beside an interior run of 3,000 rows (its last
+              row emits the 4 bytes up to the trailing run) or after one
+              of 2,500;
   grid_step (E8): random words and 0xFFFFFFFF, which wraps to 0;
   onehot_place (E9, to TOLERANCE): unsorted targets, a bin hit 64 times,
               targets outside the bins, K not a multiple of the block.
@@ -548,12 +557,23 @@ def _windowed(rng, q, device, call, n_fill=6, place=True):
 
 
 def _place_wide(device) -> int:
+    """E2 at every lanes on the windowed cases, on reach_case at reach 63
+    and on narrow_case at Q = 8,000 and 7,999 (16-byte and scalar row
+    loads)."""
     pw = place_window
-    return max(_windowed(np.random.default_rng(8), 4000, device,
-                         lambda pb, em, n, lanes=lanes: pw.place_wide(
-                             pb, em, pw.window_base_rows_w(pb, n, lanes), n,
-                             lanes=lanes))
-               for lanes in pw.WIDE_LANES)
+    rng = np.random.default_rng(19)
+    cases = [reach_case(6, rng, device)] + [narrow_case(rng, q, device)
+                                            for q in (8000, 7999)]
+    err = 0
+    for lanes in pw.WIDE_LANES:
+        call = lambda pb, em, n, lanes=lanes: pw.place_wide(
+            pb, em, pw.window_base_rows_w(pb, n, lanes), n, lanes=lanes)
+        err = max([err, _windowed(np.random.default_rng(8), 4000, device,
+                                  call)]
+                  + [max_abs_err(call(pb, em, n),
+                                 place_kernel.place_fill_reference(pb, em, n))
+                     for pb, em, n in cases])
+    return err
 
 
 def _place_fill2(device) -> int:
@@ -851,7 +871,55 @@ def _place_grouped(device) -> int:
     return max(grouped_err(win, g, device) for win, g in GROUPED_SHAPES)
 
 
+# E7's trailing runs of equal offs: case -> (the run's offset in each
+# image, C ragged, out_cap in windows, interior runs (image, rows, beside))
+_W7 = emit_kernel.WIN
+EMIT_RUN_CASES = {
+    "run mid-window": ((2 * _W7 + 4000, _W7 + 1234), False, 4, ()),
+    "run at a window's first byte": ((2 * _W7, 3 * _W7), False, 4, ()),
+    "run at a window's last bytes": (
+        tuple(3 * _W7 - k for k in range(1, 6)), False, 4, ()),
+    "run past out_cap": ((3 * _W7, 3 * _W7 + 100), False, 3, ()),
+    "ragged C": ((2 * _W7 + 777, 3 * _W7 - 2), True, 4, ()),
+    "interior run beside a trailing one": (
+        (2 * _W7 + 2500, 3 * _W7 - 3000), False, 4,
+        ((0, 3000, True), (1, 2500, False))),
+}
+EMIT_RUN_ROWS = 3000  # the shortest trailing run of a case
+
+
+def emit_run_case(name: str, rng, device):
+    """(off, tlo, thn, out_cap) of EMIT_RUN_CASES[name]: image i's rows
+    emit 1-6 bytes each up to its run's offset, then its last rows (at
+    least EMIT_RUN_ROWS of them) share that offset; C is a multiple of 512,
+    or (ragged) one more than 57 past it, which C % 4 != 0 reads row by
+    row.  An interior run is ``rows`` rows at one offset, either just
+    before the trailing run (``beside``: its last row emits the 4 bytes up
+    to it) or in the image's first third."""
+    targets, ragged, windows, interior = EMIT_RUN_CASES[name]
+    before = [int(t * 0.9 / 3.5) for t in targets]  # rows before each run
+    c = -(-(max(before) + EMIT_RUN_ROWS) // 512) * 512 + (57 if ragged else 0)
+    off = np.empty((len(targets), c), np.int64)
+    for i, (t, r) in enumerate(zip(targets, before)):
+        nb = rng.integers(1, 7, r)
+        for image, rows, beside in interior:
+            if image == i:
+                at = r - rows if beside else r // 3
+                nb[at : at + rows - 1] = 0
+                if beside:
+                    nb[r - 1] = 4
+        first = t - int(nb.sum())
+        assert first >= 0, (name, i)
+        off[i, :r] = first + np.cumsum(nb) - nb
+        off[i, r:] = t
+    args = [_t(off.astype(np.int32), device)] + [
+        _t(_words(rng, off.shape), device) for _ in range(2)]
+    return (*args, windows * _W7)
+
+
 def _emit_window(device) -> int:
+    """E7 at every lanes on rows of 1-8 bytes with an interior run of
+    20,000 rows, and on every EMIT_RUN_CASES case."""
     rng = np.random.default_rng(13)
     win = emit_kernel.WIN
     b, c, out_cap = 3, 25000, 16 * win
@@ -863,9 +931,16 @@ def _emit_window(device) -> int:
     assert off[0].max() < out_cap and off[2].max() >= out_cap
     args = [_t(x.astype(np.int32), device) for x in (off,)] + [
         _t(_words(rng, (b, c)), device) for _ in range(2)]
-    want = emit_window.emit_wide_reference(*args, out_cap)
+    cases = [(*args, out_cap)] + [emit_run_case(name, rng, device)
+                                  for name in EMIT_RUN_CASES]
+    return max(emit_window_err(*case) for case in cases)
+
+
+def emit_window_err(off, tlo, thn, out_cap: int) -> int:
+    """Max |E7 - plain| over every lanes."""
+    want = emit_window.emit_wide_reference(off, tlo, thn, out_cap)
     return max(max_abs_err(emit_window.emit_wide(
-        *args, emit_window.window_base_rows_w(args[0], out_cap, lanes),
+        off, tlo, thn, emit_window.window_base_rows_w(off, out_cap, lanes),
         out_cap, lanes=lanes), want)
         for lanes in place_window.WIDE_LANES)
 

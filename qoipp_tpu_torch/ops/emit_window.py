@@ -11,12 +11,16 @@ of equal offs longer than that; the port's kernel visits every slab
 ``base_step`` names and writes it.
 
 CPU tensors take the plain version; CUDA tensors launch the kernel (one
-block per 8,192-byte window, ``lanes`` candidate rows staged per step) and
-raise on any failure.  ``hoist`` shaped the TPU kernel's vector code only
+block per 8,192-byte window over the ``lanes``-row slabs that base_step
+names; it reads only the rows before the slabs' trailing run of equal offs,
+which a warp finds by a ballot search, and the run's last row) and raise
+on any failure.  ``hoist`` shaped the TPU kernel's vector code only
 and launches the same kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -24,6 +28,17 @@ from .. import kernels
 from .emit_kernel import WIN, emit_bytes_reference
 from .place_window import WIDE_LANES, _require
 from .place_window import window_base_rows_w as _base_rows
+
+def launch_shape(lanes: int = 256) -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of the kernel at lanes,
+    read from the built library; builds the kernels on first use."""
+    threads = ctypes.c_int()
+    n = kernels.library().qk_emit_window_occupancy(lanes,
+                                                   ctypes.byref(threads))
+    if n <= 0:
+        raise RuntimeError(f"emit_window: occupancy query failed: CUDA "
+                           f"error {-n}")
+    return threads.value, n
 
 
 def window_base_rows_w(off, out_cap: int, lanes: int):

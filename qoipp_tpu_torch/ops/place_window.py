@@ -51,16 +51,19 @@ MAX_STEP = 16384  # csrc/place_grouped.cu kMaxStep: pixels per E4 block
 REACH = 63  # E4's fill reach: six log-shift passes
 
 
-def launch_shape(name: str, win: int = WIN, g: int = 1) -> tuple[int, int]:
-    """(threads a block, resident blocks an SM) of E3 (``name``
-    "place_fill2"), E5 ("place_fill_narrow"), E6 ("place_variant", the full
-    variant) or E4 ("place_grouped", lr_mode dyn at win and g), read from
-    the built library (the CUDA occupancy calculator); builds the kernels
-    on first use."""
+def launch_shape(name: str, win: int = WIN, g: int = 1,
+                 lanes: int = 256) -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of E2 (``name``
+    "place_wide", at lanes), E3 ("place_fill2"), E5 ("place_fill_narrow"),
+    E6 ("place_variant", the full variant) or E4 ("place_grouped", lr_mode
+    dyn at win and g), read from the built library (the CUDA occupancy
+    calculator); builds the kernels on first use."""
     lib = kernels.library()
     threads = ctypes.c_int()
     if name == "place_grouped":
         n = lib.qk_place_grouped_occupancy(win, g, ctypes.byref(threads))
+    elif name == "place_wide":
+        n = lib.qk_place_wide_occupancy(lanes, ctypes.byref(threads))
     else:
         entry = {"place_fill2": "qk_place_fill2_occupancy",
                  "place_fill_narrow": "qk_place_narrow_occupancy",
@@ -189,9 +192,9 @@ def place_wide(pb, emits, base_step, n_cap: int, lanes: int = 256,
 
     pb (B, Q) int32 nondecreasing; emits (B, Q) int32; base_step from
     window_base_rows_w(pb, n_cap, lanes); n_cap % WIN == 0.  Rows past Q
-    read as pb = n_cap, the JAX wrapper's padding.  The kernel stages
-    ``lanes`` candidate rows per step; ``hoist`` shaped the TPU kernel's
-    vector code only.  Returns (B, n_cap) int32."""
+    read as pb = n_cap, the JAX wrapper's padding.  ``lanes`` is the slab
+    that base_step counts; ``hoist`` shaped the TPU kernel's vector code
+    only.  Returns (B, n_cap) int32."""
     b, _ = pb.shape
     _require(tuple(base_step.shape) == (b, n_cap // WIN + 1),
              f"base_step shape {tuple(base_step.shape)}")

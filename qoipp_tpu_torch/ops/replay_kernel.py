@@ -49,6 +49,11 @@ def _replay_reference(meta, val, prev_in, seen_in, summary: bool):
     """The row loop shared by the plain versions of K1 and K5.  The class
     masks are decoded for all rows at once; a row's step skips the terms
     of the classes it does not hold."""
+    # rows in chunk-major memory: a lane-major view of a single lane (B =
+    # 1) counts as contiguous but keeps its row stride, and _bytes cannot
+    # view such a row as bytes
+    meta, val = (x.clone(memory_format=torch.contiguous_format)
+                 for x in (meta, val))
     c, b = meta.shape
     dev = meta.device
     lanes = torch.arange(b, device=dev)
@@ -110,16 +115,14 @@ def replay_batch_carry_reference(meta, val, prev_in, seen_in):
     """Plain version of K1: a Python loop over the C rows, vectorised over
     the B lanes.  Same arguments and results as replay_batch_carry (its
     emits chunk-major whatever the rows' layout)."""
-    return _replay_reference(meta.contiguous(), val.contiguous(), prev_in,
-                             seen_in, summary=False)
+    return _replay_reference(meta, val, prev_in, seen_in, summary=False)
 
 
 def replay_batch_summary_reference(meta, val, prev_in, seen_in):
     """Plain version of K5: K1's row loop plus the transfer summaries.
     Same arguments and results as replay_batch_summary (its emits
     chunk-major whatever the rows' layout)."""
-    return _replay_reference(meta.contiguous(), val.contiguous(), prev_in,
-                             seen_in, summary=True)
+    return _replay_reference(meta, val, prev_in, seen_in, summary=True)
 
 
 def _check_replay_args(meta, val, prev_in, seen_in):

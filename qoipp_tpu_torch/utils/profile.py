@@ -2,9 +2,9 @@
 entry point at the smoke run's sizes, summed by kernel group.
 
     python -m qoipp_tpu_torch.utils.profile      # on a machine with a card
-    python -m qoipp_tpu_torch.utils.profile --paths E6 --calls 20
+    python -m qoipp_tpu_torch.utils.profile --paths E6 E7 --calls 20
 
-For each path (``--paths``: those whose label holds the text) it
+For each path (``--paths``: those whose label holds one of the texts) it
 prints, per call (``--calls``, 3 by default, after 3 warmups; ten times
 as many, marked, where the profiler kept no device event of those): the
 device busy time (the union of kernel and copy intervals), the span from
@@ -21,8 +21,10 @@ each lanes, E5 at ns 2 and 4, E6 at each kernel its experiment runs --
 full, no-fill, fill-3, no-slabs, no-dma, dma-only and bare -- and K2 on
 the same 8 x 524,288 photo-like rows; E3 and K2 on the 128 x 284,928
 bench-like rows), E4's exact variant (8192-pixel windows, G=1, dyn)
-beside K2 on its script's 128 x 286,720 rows, and E7 at 256 lanes beside
-K4 on its script's 8 x 2^17 rows, base rows computed outside the call;
+beside K2 on its script's 128 x 286,720 rows, and E7 at each lanes beside
+K4 on its script's 8 x 2^17 rows and at 256 lanes on the same script's
+rows at fill 0.999 (a trailing run of ~130 equal offs, not ~32,770), base
+rows computed outside the call;
 and the profile_r2 probes at their own sizes, E8 at 4,096 and 65,536
 steps and E9 at 2,048 blocks.
 """
@@ -240,16 +242,23 @@ def _e4_e7_paths(dev):
     off = torch.from_numpy(off_np).to(dev)
     tlo, thn = (torch.from_numpy(x.view(np.int32)).to(dev)
                 for x in (tlo_np, thn_np))
-    base7 = EW.window_base_rows_w(off, cap, 256)
+    full_np = expt_emit_wide.gen_inputs(np.random.default_rng(0), 8,
+                                        1 << 17, fill=0.999)
+    full = [torch.from_numpy(x.view(np.int32)).to(dev) for x in full_np[:3]]
+    full_base = EW.window_base_rows_w(full[0], full_np[3], 256)
     rows = "8x131072 rows"
     return [
         (f"K2 place_fill {main}", lambda: place_kernel.place_fill(pb, em, n)),
         (f"E4 place_grouped dyn {main}",
          lambda: PW.place_grouped(pb, em, base, n)),
         (f"K4 emit_bytes {rows}",
-         lambda: emit_kernel.emit_bytes(off, tlo, thn, cap)),
-        (f"E7 emit_wide lanes=256 {rows}",
-         lambda: EW.emit_wide(off, tlo, thn, base7, cap))] + [
+         lambda: emit_kernel.emit_bytes(off, tlo, thn, cap))] + [
+        (f"E7 emit_wide lanes={lanes} {rows}",
+         lambda k=lanes, b=EW.window_base_rows_w(off, cap, lanes):
+         EW.emit_wide(off, tlo, thn, b, cap, lanes=k))
+        for lanes in EW.WIDE_LANES] + [
+        (f"E7 emit_wide lanes=256 fill 0.999 {rows}",
+         lambda: EW.emit_wide(*full, full_base, full_np[3]))] + [
         (f"E8 grid_step_probe {n} steps",
          lambda x=torch.zeros((n,) + probes.STEP_SHAPE, dtype=torch.int32,
                               device=dev): probes.grid_step_probe(x))
@@ -260,8 +269,9 @@ def _e4_e7_paths(dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--paths", default="",
-                    help="profile only the paths whose label holds this")
+    ap.add_argument("--paths", nargs="*", default=[""],
+                    help="profile only the paths whose label holds one of "
+                    "these")
     ap.add_argument("--calls", type=int, default=3,
                     help="traced calls a path (after 3 warmups)")
     args = ap.parse_args(argv)
@@ -273,7 +283,7 @@ def main(argv=None):
         check=True, capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     for label, fn in _paths(torch.device("cuda")):
-        if args.paths not in label:
+        if not any(p in label for p in args.paths):
             continue
         r = profile_path(fn, calls=args.calls)
         parts = "; ".join(f"{g} {ms:.4f} ({n:g})"

@@ -5,8 +5,9 @@ one-shot codec and the streaming codec at a small size against the port's
 oracle, K2 and E1 across many blocks (selfcheck.place_fill_cases and
 fields_segments), E3 on selfcheck.FILL2_CASES, E4 at every
 selfcheck.GROUPED_SHAPES, E5 on selfcheck.narrow_case at every ns the
-selfcheck takes and E6's instantiations on selfcheck.reach_case at every
-n_fill, and the experiment scripts (E2-E7, and E8/E9 in
+selfcheck takes, E6's instantiations on selfcheck.reach_case at every
+n_fill, E2 at every lanes on both, E7 at every lanes on
+selfcheck.EMIT_RUN_CASES, a single-image batch decode, and the experiment scripts (E2-E7, and E8/E9 in
 profile_r2) at a small size; and K1 and K5 against their plain versions
 on the whole output over no rows and tile-edge row counts, lane counts,
 both row layouts and one-class, reset, random and palette rows; K3 and K6
@@ -135,12 +136,59 @@ def test_place_variant_reach_cases_match_plain_version(cuda, n_fill):
             pb, emits, n_cap, n_fill, slabs))
 
 
-@pytest.mark.parametrize("name", ["place_fill_narrow", "place_variant"])
+@pytest.mark.parametrize("name", ["place_wide", "place_fill_narrow",
+                                  "place_variant"])
 def test_place_window_launch_shapes(cuda, name):
     from qoipp_tpu_torch.ops import place_window
 
     threads, per_sm = place_window.launch_shape(name)
     assert threads == 512 and per_sm >= 1
+    if name == "place_wide":
+        for lanes in (128, 512):
+            assert place_window.launch_shape(name, lanes=lanes)[1] >= 1
+
+
+@pytest.mark.parametrize("case", ["reach", "narrow 8000", "narrow 7999"])
+def test_place_wide_cases_match_plain_version(cuda, case):
+    """E2 at every lanes on the whole output: E6's reach_case at reach 63
+    (writers 63, 64 and 65 apart, the windows' first and last pixels) and
+    E5's narrow_case (groups inside a window's last stripe and across its
+    edge; 16-byte and scalar row loads)."""
+    from qoipp_tpu_torch.ops import place_kernel, place_window
+
+    rng = np.random.default_rng(len(case))
+    pb, emits, n_cap = (selfcheck.reach_case(6, rng, cuda) if case == "reach"
+                        else selfcheck.narrow_case(rng, int(case[-4:]), cuda))
+    want = place_kernel.place_fill_reference(pb, emits, n_cap)
+    for lanes in place_window.WIDE_LANES:
+        got = place_window.place_wide(
+            pb, emits, place_window.window_base_rows_w(pb, n_cap, lanes),
+            n_cap, lanes=lanes)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), lanes
+
+
+@pytest.mark.parametrize("case", sorted(selfcheck.EMIT_RUN_CASES))
+def test_emit_run_cases_match_plain_version(cuda, case):
+    """E7 at every lanes on the whole output where an image's rows end in a
+    run of equal offs: mid-window, at a window's first byte, at one of its
+    last 5 bytes (the run's last row crosses the edge), at or past out_cap,
+    with a ragged C, and beside an interior run."""
+    from qoipp_tpu_torch.ops import emit_window
+
+    before = kernels.launch_counts()["emit_window"]
+    case = selfcheck.emit_run_case(case, np.random.default_rng(1), cuda)
+    assert selfcheck.emit_window_err(*case) == 0
+    assert kernels.launch_counts()["emit_window"] == before + len(
+        emit_window.WIDE_LANES)
+
+
+def test_emit_window_launch_shape(cuda):
+    from qoipp_tpu_torch.ops import emit_window
+
+    for lanes in emit_window.WIDE_LANES:
+        threads, per_sm = emit_window.launch_shape(lanes)
+        assert threads == 512 and per_sm >= 1
 
 
 @pytest.mark.parametrize("b,nb", selfcheck.FIELDS_SEGMENT_SHAPES)
@@ -324,6 +372,24 @@ def test_pipeline_on_card_matches_oracle(cuda, channels):
     for i, blob in enumerate(blobs):
         assert int(lengths[i]) == blob.size
         assert np.array_equal(out[i, : blob.size].cpu().numpy(), blob)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_single_image_pipeline_on_card_matches_oracle(cuda, channels):
+    # B = 1: K1 reads the lane-major (qb, 1) rows at their strides
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+    from qoipp_tpu_torch.ops.bitops import pixels_to_packed
+
+    desc, _, blobs = make_corpus(1, 96, 64, seed=channels, channels=channels)
+    pipe = BatchPipeline(desc, max_stream_len=blobs[0].size, device=cuda)
+    streams, sizes = pipe.pack_streams(blobs)
+    packed = pipe.decode_packed(streams, sizes)
+    want = pixels_to_packed(torch.from_numpy(
+        oracle.decode(blobs[0], desc, desc.channels)[None]).to(cuda), channels)
+    assert torch.equal(packed[:, : pipe.n_px], want)
+    img = pipe.decode(streams, sizes)
+    assert np.array_equal(img[0].cpu().numpy().reshape(-1),
+                          oracle.decode(blobs[0], desc, desc.channels))
 
 
 @pytest.mark.parametrize("lanes,chunk_domain", [(8, True), (32, False)])

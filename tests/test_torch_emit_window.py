@@ -5,7 +5,8 @@ its plain version (K4's, qoipp_tpu_torch.ops.emit_window); the kernel runs
 on the card (tests/test_torch_cuda.py, chip_smoke.py).  Also: the script's
 generator and window_base_rows_w against the port's, the TPU kernel's
 ``lenr`` cap pinned where it binds, and the port's script at a small
-size."""
+size; the selfcheck's trailing-run cases against the JAX kernel, and
+the rows the card's kernel reads for them."""
 
 import importlib.util
 from pathlib import Path
@@ -14,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from qoipp_tpu.ops import emit_kernel as jek
 from qoipp_tpu_torch.benchmarks import expt_emit_wide
 from qoipp_tpu_torch.convert import words_to_torch
+from qoipp_tpu_torch.kernels import selfcheck
 from qoipp_tpu_torch.ops import emit_window as EW
 
 torch.set_num_threads(1)
@@ -84,6 +88,60 @@ def test_lenr_cap_drops_the_covering_row_of_a_long_equal_off_run():
     assert got[0, 343745:343751].tolist() == [
         (tlo_last >> 8 * k) & 0xFF for k in range(4)] + [
         thn_last & 0xFF, thn_last >> 8 & 0xFF]
+
+
+@pytest.mark.parametrize("lanes", EW.WIDE_LANES)
+@pytest.mark.parametrize("case", sorted(selfcheck.EMIT_RUN_CASES))
+def test_emit_run_cases_match_jax(case, lanes):
+    # the selfcheck's trailing runs of equal offs (the card's kernel reads
+    # only the rows before each and its last row): every run here is shorter
+    # than the JAX kernel's lenr slabs, so its whole output is the port's
+    off, tlo, thn, out_cap = selfcheck.emit_run_case(
+        case, np.random.default_rng(lanes), "cpu")
+    e7 = _script()
+    joff = jnp.asarray(off.numpy())
+    jtlo, jthn = (jnp.asarray(x.numpy().view(np.uint32)) for x in (tlo, thn))
+    want = np.asarray(e7.emit_wide(
+        joff, jtlo, jthn, e7.window_base_rows_w(joff, out_cap, lanes),
+        out_cap, lanes=lanes))
+    got = EW.emit_wide(off, tlo, thn,
+                       EW.window_base_rows_w(off, out_cap, lanes), out_cap,
+                       lanes=lanes)
+    assert np.array_equal(want, got.numpy())
+    runs = [int((r == r[-1]).sum()) for r in off.numpy()]
+    assert min(runs) >= selfcheck.EMIT_RUN_ROWS
+
+
+@pytest.mark.parametrize("case", sorted(selfcheck.EMIT_RUN_CASES))
+def test_emit_run_cases_candidate_rows_hold_every_writer(case):
+    # the card's kernel reads, for window w, the row before base's first
+    # slab and the slabs' rows [lo, hi), and writes only the last row of
+    # the trailing run of equal offs in them: every row whose bytes land in
+    # the window lies there, and the trailing run's rows before its last
+    # write nothing, at every lanes
+    off, _, _, out_cap = selfcheck.emit_run_case(
+        case, np.random.default_rng(5), "cpu")
+    o = off.numpy().astype(np.int64)
+    b, c = o.shape
+    nxt = np.concatenate([o[:, 1:], np.full((b, 1), out_cap + EW.WIN)], 1)
+    n = np.minimum(nxt - o, 6)
+    for lanes in EW.WIDE_LANES:
+        base = EW.window_base_rows_w(off, out_cap, lanes).numpy()
+        for i in range(b):
+            for w in range(out_cap // EW.WIN):
+                w0 = w * EW.WIN
+                lo = int(base[i, w]) * lanes
+                hi = min((int(base[i, w + 1]) + 1) * lanes, c)
+                rows = np.flatnonzero((n[i] > 0) & (o[i] < w0 + EW.WIN)
+                                      & (o[i] + n[i] > w0)
+                                      & (o[i] < out_cap))
+                assert rows.size == 0 or (rows.min() >= max(lo - 1, 0)
+                                          and rows.max() < hi), (lanes, i, w)
+                if lo < hi:
+                    run = o[i, lo:hi] == o[i, hi - 1]
+                    start = lo + int(np.argmax(run))
+                    assert run[start - lo:].all()
+                    assert not np.any(n[i, start:hi - 1] > 0)
 
 
 def test_gen_inputs_is_the_script():

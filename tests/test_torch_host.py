@@ -123,6 +123,24 @@ def test_count_bytes_matches_jax(desc):
         assert int(got.error()) == int(want.error())
 
 
+@pytest.mark.parametrize("desc", [
+    common.Desc(1 << 31, 1 << 31, common.Channels.RGBA),
+    common.Desc((1 << 32) - 1, (1 << 32) - 1, common.Channels.RGB),
+    common.Desc((1 << 32) - 1, (1 << 32) - 1, common.Channels.RGBA),
+    common.Desc(17, 0, common.Channels.RGBA),
+    common.Desc(29, 17, common.Channels.RGB),
+    common.Desc(1, 65535, common.Channels.RGBA, common.Colorspace.LINEAR),
+])
+def test_worst_size_matches_jax(desc):
+    # through count_bytes' size_t checks first, as the JAX package does
+    got, want = common.worst_size(desc), jcommon.worst_size(_jdesc(desc))
+    assert bool(got) == bool(want)
+    if got:
+        assert got.value() == want.value()
+    else:
+        assert int(got.error()) == int(want.error())
+
+
 def test_result_constructors():
     ok = common.Result.ok(b"qoif")
     assert ok and ok.value() == b"qoif"

@@ -337,6 +337,29 @@ def test_replay_batch_summary(seed, p_rst):
         assert torch.equal(a, g)
 
 
+@pytest.mark.parametrize("summary", [False, True], ids=["K1", "K5"])
+def test_replay_one_lane_lane_major(summary):
+    # one lane's lane-major view (the transpose of a (1, C) plane) counts as
+    # contiguous but keeps its row stride C: the plain versions take it as
+    # the batch, split and stream paths hand it over
+    rng = np.random.default_rng(6)
+    meta, val = _chunk_rows(rng, 1024, 1, 0.01)
+    prev, seen = _words(rng, (1, 1)), _words(rng, (64, 1))
+    jfn, fn = ((jrk.replay_batch_summary, replay_kernel.replay_batch_summary)
+               if summary else
+               (jrk.replay_batch_carry, replay_kernel.replay_batch_carry))
+    want = jfn(jnp.asarray(meta), jnp.asarray(val), jnp.asarray(prev),
+               jnp.asarray(seen))
+    tprev, tseen = convert.carry_from_jax(prev, seen, device="cpu")
+    tmeta, tval = (words_to_torch(np.ascontiguousarray(x.T)).T
+                   for x in (meta, val))
+    assert tmeta.is_contiguous() and tmeta.stride() == (1, 1024)
+    got = fn(tmeta, tval, tprev, tseen)
+    assert len(got) == len(want)
+    for w, g in zip(want, got):
+        assert np.array_equal(_np(w).view(np.uint32), words_to_numpy(g))
+
+
 def _flagged_rows(rng, b, n):
     """Expansion-shaped K6 input: flagged words (bit 31) at gaps of 1..64,
     every other word 0; row 0 has a flag at column 0, the last row none."""

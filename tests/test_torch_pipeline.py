@@ -76,6 +76,25 @@ def test_corpus_decode_whole_output(corpus):
     assert pipe.n_cap > pipe.n_px and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("channels", [3, 4], ids=["rgb", "rgba"])
+def test_single_image_decode(channels):
+    # B = 1: the lane-major (qb, 1) rows count as contiguous but keep their
+    # row stride, which the plain replay must not view as bytes
+    desc, _, blobs = make_corpus(1, 96, 64, channels=channels)
+    pipe, jpipe = _pipes(desc, blobs)
+    streams, sizes = pipe.pack_streams(blobs)
+    got = words_to_numpy(pipe.decode_packed(streams, sizes))
+    want = np.asarray(jpipe.decode_packed(jnp.asarray(streams),
+                                          jnp.asarray(sizes)))
+    assert got.shape == want.shape == (1, pipe.n_cap)
+    assert np.array_equal(got, want)
+    _check_decode(desc, blobs, pipe, jpipe)
+    img = pipe.decode(streams, sizes)
+    assert img.shape == (1, desc.height, desc.width, channels)
+    assert np.array_equal(img[0].numpy().reshape(-1),
+                          oracle.decode(blobs[0], desc, desc.channels))
+
+
 def test_corpus_encode(corpus):
     desc, raws, blobs, pipe, jpipe = corpus
     raw = np.stack(raws)
