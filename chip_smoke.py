@@ -43,6 +43,17 @@
      torch's scatter and cumsum rates, E8 at 4,096 / 16,384 / 65,536
      steps, E9 at 2,048 blocks of 2,048 targets), E8 and E9 against their
      plain versions;
+   - the serving path (models/serving.ServingCodec at its defaults) on the
+     committed real corpus, tests/resources/local_corpus/*.qoi (16 images,
+     9.31 MPix), replicated 8 times as benchmarks/serving_bench.py's
+     default does (128 requests, 74.5 MPix): decode_dispatch ->
+     decode_finish, encode, a resident corpus decoded twice,
+     decode_dispatch_overlapped and encode_stage -> encode_dispatch_staged,
+     every request against the oracle's pixels and bytes, the routes
+     logged (packed tiers, the split group, the geometry buckets); then
+     PackedDecoder and PackedEncoder alone on the same 128 requests, and
+     api's torch backend (decode and encode) on photo_china_1080p and an
+     RGBA icon against its native backend;
 4. requires each kernel of each path to have launched in that path's run
    (counts set to 0 just before each run and read just after);
 5. checks each kernel against its plain version again at its path's
@@ -70,8 +81,20 @@
    the same run), runs the replay class probe
    (benchmarks/replay_probe: K1 at 16 x 277,888 rows and K5 at 96 x
    12,288 on all-NOP, all-SETA, all-ADD and all-IDX rows and the cells'
-   own, in ns a row), then times every path (1 cold, 3 warmup, 5 timed
-   runs, CUDA events).
+   own, in ns a row); holds every kernel of the serving path, the packed
+   lanes and the api backend against its plain version at each shape
+   those paths give it (K1 and K2 on every packed decode tier and on
+   PackedDecoder's plan, K1 also on the 4,096 rows over the first stream
+   reset inside a lane, from the kernel's own carry; K3, K5 at every
+   fixpoint round and K2 on the split group; K3's two compactions and K4
+   on every packed encode tier and on PackedEncoder's lanes; K3 and K4
+   on every geometry bucket; K1, K6, K3 and K4 on api's images: the
+   rows' "held_at"), and times K1 and K2 on the first decode tier and K3
+   and K4 on the first encode tier beside their plain versions; then
+   times every path (1 cold, 3 warmup, 5 timed runs, CUDA
+   events), the serving path as decode to completion, pre-staged,
+   resident, overlapped and end to end with the fetch, encode to
+   completion, pre-staged and end to end, and the packed lanes alone.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -89,11 +112,12 @@ import math  # noqa: E402
 import re  # noqa: E402
 import subprocess  # noqa: E402
 import time  # noqa: E402
+from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from qoipp_tpu_torch import kernels, oracle  # noqa: E402
+from qoipp_tpu_torch import api, kernels, oracle  # noqa: E402
 from qoipp_tpu_torch.benchmarks import (  # noqa: E402
     expt_emit_wide,
     expt_place,
@@ -105,9 +129,10 @@ from qoipp_tpu_torch.benchmarks import (  # noqa: E402
     replay_probe,
     timed_ms,
 )
-from qoipp_tpu_torch.common import Channels, Desc  # noqa: E402
+from qoipp_tpu_torch.common import Channels, Desc, read_header  # noqa: E402
 from qoipp_tpu_torch.kernels import selfcheck  # noqa: E402
-from qoipp_tpu_torch.models import split  # noqa: E402
+from qoipp_tpu_torch.models import packed as packed_lanes  # noqa: E402
+from qoipp_tpu_torch.models import serving, split  # noqa: E402
 from qoipp_tpu_torch.models.pipeline import BatchPipeline  # noqa: E402
 from qoipp_tpu_torch.ops import (  # noqa: E402
     backend,
@@ -224,6 +249,15 @@ STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
 FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
 FIELDS_BATCH = 8  # E1's logged third shape: 8 batch RGB images
 PROBE_RUNS = 5  # timed calls per profile_r2 probe
+CORPUS_DIR = Path(__file__).resolve().parent / "tests" / "resources" / \
+    "local_corpus"
+CORPUS_STREAMS = 16  # the committed real corpus
+SERVING_REPLICATE = 8  # benchmarks/serving_bench.py's default --replicate
+# PackedDecoder and PackedEncoder alone on the serving corpus: caps that
+# hold its largest stream (2.8 MB body) and image (1920x1080)
+PACKED_LANE_BYTES = 8 << 20
+PACKED_LANE_PX = 1 << 21
+API_IMAGES = ("photo_china_1080p", "icon_image")  # RGB: K6; RGBA
 
 
 PTXAS = {}  # kernel entry (mangled name) -> ptxas' "Used ..." report
@@ -533,6 +567,120 @@ def phase3_probes(run, results, dev):
         runs=PROBE_RUNS)
 
 
+def phase3_prepare_serving(dev):
+    """The serving corpus: the committed real corpus read from its files,
+    each stream's oracle pixels and the oracle's stream of those pixels,
+    replicated SERVING_REPLICATE times."""
+    t0 = time.perf_counter()
+    paths = sorted(CORPUS_DIR.glob("*.qoi"))
+    expect(len(paths) == CORPUS_STREAMS, f"{CORPUS_DIR} holds {len(paths)} "
+           f"streams, not {CORPUS_STREAMS}")
+    files = [np.fromfile(p, np.uint8) for p in paths]
+    descs = [read_header(b).value() for b in files]
+    raws = [oracle.decode(b, d, d.channels) for b, d in zip(files, descs)]
+    refs = [oracle.encode(r, d)[0] for r, d in zip(raws, descs)]
+    k = SERVING_REPLICATE
+    s = dict(names=[p.stem for p in paths] * k, blobs=files * k,
+             descs=descs * k, raws=raws * k, refs=refs * k,
+             codec=serving.ServingCodec(device=dev))
+    s["mpix"] = sum(d.width * d.height for d in s["descs"]) / 1e6
+    log(f"phase 3: serving corpus: {len(paths)} real images x {k} = "
+        f"{len(s['blobs'])} requests, {s['mpix']:.2f} MPix, "
+        f"{sum(b.size for b in s['blobs']) / 1e6:.2f} MB of streams (made "
+        f"in {time.perf_counter() - t0:.1f} s)")
+    return s
+
+
+def _check_all(got, want, names, what):
+    bad = sorted({n for g, w, n in zip(got, want, names)
+                  if not np.array_equal(g, w)})
+    expect(len(got) == len(want) and not bad,
+           f"{what}: {bad or 'the count'} differ from the oracle")
+
+
+def phase3_serving(s):
+    """ServingCodec on the serving corpus, every request against the
+    oracle: decode_dispatch -> decode_finish, encode, a resident corpus
+    decoded twice, decode_dispatch_overlapped, encode_stage ->
+    encode_dispatch_staged; the routes logged."""
+    codec, blobs, raws, descs, names, refs = (
+        s[k] for k in ("codec", "blobs", "raws", "descs", "names", "refs"))
+    plan = codec.decode_dispatch(blobs)
+    _, packed_parts, split_parts = plan
+    routes = dict(
+        decode_packed_tiers=[len(i) for i, _ in packed_parts],
+        decode_packed_shapes=[list(p[0].shape) for _, p in packed_parts],
+        decode_split_groups=[len(i) for i, _ in split_parts],
+        decode_split_streams=sorted({names[i] for g, _ in split_parts
+                                     for i in g}),
+        decode_split_rounds=[p[3] for _, p in split_parts])
+    _check_all(codec.decode_finish(plan), raws, names,
+               "serving decode_dispatch -> decode_finish")
+    _check_all(codec.encode(raws, descs), refs, names, "serving encode")
+    s["resident"] = codec.make_resident(blobs)
+    for k in (1, 2):
+        _check_all(codec.decode_finish(s["resident"].decode_device()), raws,
+                   names, f"resident decode_device, call {k}")
+    _check_all(codec.decode_finish(codec.decode_dispatch_overlapped(blobs)),
+               raws, names, "serving decode_dispatch_overlapped")
+    staged = codec.encode_stage(raws, descs)
+    routes.update(
+        encode_packed_tiers=[len(i) for i, _ in staged[1]],
+        encode_buckets=[f"{d.width}x{d.height}x{int(d.channels)}: "
+                        f"{len(i)}" for i, _, _, d in staged[2]])
+    _check_all(codec.encode_finish(codec.encode_dispatch_staged(staged)),
+               refs, names, "serving encode_stage -> encode_dispatch_staged")
+    s["routes"] = routes
+    log(f"phase 3: serving routes: {routes}")
+    log(f"phase 3: serving: decode_dispatch -> decode_finish, encode, "
+        f"resident decode_device x 2, decode_dispatch_overlapped and "
+        f"encode_stage -> encode_dispatch_staged equal the oracle on all "
+        f"{len(blobs)} requests")
+
+
+def phase3_packed(s, dev):
+    """PackedDecoder and PackedEncoder alone on the serving corpus, every
+    request against the oracle; their lane plans logged."""
+    blobs, raws, descs, names, refs = (
+        s[k] for k in ("blobs", "raws", "descs", "names", "refs"))
+    dec = packed_lanes.PackedDecoder(lane_bytes=PACKED_LANE_BYTES, device=dev)
+    regions, _, _, where, _, qb, n_cap, l_total = dec.plan_and_pack(blobs)
+    per_lane = np.bincount([lane for lane, _ in where])
+    log(f"phase 3: PackedDecoder: {len(blobs)} streams over "
+        f"{len(per_lane)} lanes ({regions.shape[0]} uploaded, {l_total} on "
+        f"the device), qb {qb}, n_cap {n_cap}, {per_lane.min()}.."
+        f"{per_lane.max()} streams a lane")
+    _check_all(dec.decode(blobs), raws, names, "PackedDecoder.decode")
+    enc = packed_lanes.PackedEncoder(lane_px=PACKED_LANE_PX, device=dev)
+    pk, _, ewhere, caps = enc.plan_and_pack(raws, descs)
+    members = np.bincount([lane for lane, _ in ewhere])
+    log(f"phase 3: PackedEncoder: {len(raws)} images over {pk.shape[0]} "
+        f"lanes of {pk.shape[1]} pixels, {members.min()}..{members.max()} "
+        f"streams a lane, caps {caps}")
+    _check_all(enc.encode(raws, descs), refs, names, "PackedEncoder.encode")
+    s["packed"] = dict(dec=dec, enc=enc)
+    log(f"phase 3: PackedDecoder.decode and PackedEncoder.encode equal the "
+        f"oracle on all {len(blobs)} requests")
+
+
+def phase3_api(s, dev):
+    """api's torch backend on API_IMAGES, decode and encode, against its
+    native backend."""
+    for name in API_IMAGES:
+        i = s["names"].index(name)
+        blob, raw, d = s["blobs"][i], s["raws"][i], s["descs"][i]
+        got = api.decode(blob, backend="torch", device=dev).value()
+        want = api.decode(blob, backend="native").value()
+        expect(got.desc == want.desc and np.array_equal(got.data, want.data),
+               f"api.decode[{name}]: the torch backend differs from native")
+        enc = api.encode(raw, d, backend="torch", device=dev).value()
+        expect(np.array_equal(enc, api.encode(raw, d,
+                                              backend="native").value()),
+               f"api.encode[{name}]: the torch backend differs from native")
+        log(f"phase 3: api torch backend [{name}, {d.width}x{d.height}x"
+            f"{int(d.channels)}]: decode and encode equal the native backend")
+
+
 def drive(label, fn, needs, totals):
     """Run one path with every launch count at 0, then require each kernel
     of `needs` (or of what `needs()` returns after the run) to have
@@ -566,40 +714,63 @@ def _replay_bytes(c, b, summary):
     return 12 * c * b + 4 * b * (65 * 2 + (65 if summary else 0))
 
 
-def _replay_row(name, meta_t, val_t, carry, launches, card, what):
-    """K1 ("replay") or K5 ("replay_summary") on the rows its path gives it,
-    from ``carry``: held against its plain version on the first
-    PLAIN_REPLAY_ROWS rows, and on the last PLAIN_REPLAY_ROWS from the
-    kernel's own carry after the rows before them (the emits there, the
-    final prev and table), then timed beside the plain version and the
-    first build's time.  The chain bound beside the row's bound: the
-    longest chain of dependent operations the function needs on these rows
-    (replay_probe.chain_depth) at the dependent-issue latency and the SM
-    clock measured just after the timed calls (replay_probe.chain_latency);
-    the share is the kernel's time against the larger of the two."""
-    fn, ref = ((replay_kernel.replay_batch_carry,
-                replay_kernel.replay_batch_carry_reference)
-               if name == "replay" else
-               (replay_kernel.replay_batch_summary,
-                replay_kernel.replay_batch_summary_reference))
-    c, b = meta_t.shape
+_REPLAYS = {
+    "replay": (replay_kernel.replay_batch_carry,
+               replay_kernel.replay_batch_carry_reference),
+    "replay_summary": (replay_kernel.replay_batch_summary,
+                       replay_kernel.replay_batch_summary_reference)}
+
+
+def _replay_check(name, meta_t, val_t, carry, what, starts=()):
+    """K1 ("replay") or K5 ("replay_summary") on the rows its path gives
+    it, from ``carry``, against its plain version on PLAIN_REPLAY_ROWS-row
+    windows: the first rows (every output), the last rows from the
+    kernel's own carry after the rows before them (the emits there, and
+    the final state), and the rows from each of ``starts`` on, also from
+    the kernel's carry (the emits there).  Returns (the largest
+    difference, the kernel's output on all rows, the first rows)."""
+    fn, ref = _REPLAYS[name]
+    c = meta_t.shape[0]
     n = min(PLAIN_REPLAY_ROWS, c)
     pm, pv = meta_t[:n], val_t[:n]
     err = max(selfcheck.max_abs_err(g, w) for g, w in
               zip(fn(pm, pv, *carry), ref(pm, pv, *carry)))
     expect(err == 0, f"{name} disagrees with its plain version on the "
-           f"first {n} rows")
+           f"first {n} rows ({what})")
     full = fn(meta_t, val_t, *carry)
-    cut = c - n
-    mid = fn(meta_t[:cut], val_t[:cut], *carry)[1:3] if cut else carry
-    want = ref(meta_t[cut:], val_t[cut:], *mid)
-    tail_err = max(selfcheck.max_abs_err(full[0][cut:], want[0]),
-                   selfcheck.max_abs_err(full[1], want[1]),
-                   selfcheck.max_abs_err(full[2], want[2]))
-    expect(tail_err == 0, f"{name} disagrees with its plain version on the "
-           f"last {n} rows")
+    for s in sorted({min(max(int(s), 0), c - n) for s in starts}
+                    | {c - n}):
+        mid = fn(meta_t[:s], val_t[:s], *carry)[1:3] if s else carry
+        want = ref(meta_t[s:s + n], val_t[s:s + n], *mid)
+        errs = [selfcheck.max_abs_err(full[0][s:s + n], want[0])]
+        if s == c - n:  # the final state too
+            errs += [selfcheck.max_abs_err(full[1], want[1]),
+                     selfcheck.max_abs_err(full[2], want[2])]
+        expect(max(errs) == 0, f"{name} disagrees with its plain version "
+               f"on rows {s}..{s + n} ({what})")
+        err = max(err, *errs)
+    return err, full, (pm, pv)
+
+
+def _replay_row(name, meta_t, val_t, carry, launches, card, what,
+                starts=()):
+    """K1 ("replay") or K5 ("replay_summary") on the rows its path gives it,
+    from ``carry``: held against its plain version as _replay_check holds
+    it (the first and last PLAIN_REPLAY_ROWS rows and a window at each of
+    ``starts``), then timed beside the plain version and the first
+    build's time.  The chain bound beside the row's bound: the longest
+    chain of dependent operations the function needs on these rows
+    (replay_probe.chain_depth) at the dependent-issue latency and the SM
+    clock measured just after the timed calls
+    (replay_probe.chain_latency); the share is the kernel's time against
+    the larger of the two."""
+    fn, ref = _REPLAYS[name]
+    c, b = meta_t.shape
+    err, full, (pm, pv) = _replay_check(name, meta_t, val_t, carry, what,
+                                        starts)
+    n = pm.shape[0]
     depth = replay_probe.chain_depth(meta_t, full[0])
-    del full, want
+    del full
     ms = timed_ms(lambda: fn(meta_t, val_t, *carry))
     lat, mhz = replay_probe.chain_latency(meta_t.device)
     prefix_ms = timed_ms(lambda: fn(pm, pv, *carry))
@@ -610,7 +781,7 @@ def _replay_row(name, meta_t, val_t, carry, launches, card, what):
     nbytes = _replay_bytes(c, b, name == "replay_summary")
     ops = OPS_PER_ELEMENT[name] * c * b
     row = _kernel_row(
-        name, launches[name], max(err, tail_err), ms, plain_ms, nbytes, ops,
+        name, launches[name], err, ms, plain_ms, nbytes, ops,
         rows=c, lanes=b, plain_rows=n, ms_on_plain_rows=prefix_ms,
         ns_per_row=ms / c * 1e6, state_rows=n_state,
         ns_per_state_row=ms / n_state * 1e6)
@@ -625,8 +796,8 @@ def _replay_row(name, meta_t, val_t, carry, launches, card, what):
         f"design's chain floor {floor_ms:.4f} ms ({DESIGN_CHAIN_INSTRS} "
         f"dependent "
         f"instructions a state row); plain on {n} rows {plain_ms:.1f} ms "
-        f"(kernel on those rows {prefix_ms:.3f} ms); head and tail windows "
-        f"equal the plain version, on {card}")
+        f"(kernel on those rows {prefix_ms:.3f} ms); head, tail and "
+        f"{len(starts)} more windows equal the plain version, on {card}")
     return row
 
 
@@ -746,11 +917,11 @@ def _place_fill_time(pix_before, emits, n_cap, where, card):
     nbytes = 8 * b * q + 4 * b * n_cap
     ops = b * (WINDOW_OPS_PER_ROW * q + WINDOW_OPS_PER_PIXEL * n_cap)
     bound_s, bound_by = bound(nbytes, ops)
-    first = FIRST_BUILD_MS[f"place_fill {where}"]
+    first = FIRST_BUILD_MS.get(f"place_fill {where}")
     log(f"phase 5: place_fill on the {where} path ({b} x {q} rows -> "
         f"{n_cap} px, {b * n_cap // place_kernel.WIN} windows): "
-        f"{ms:.4f} ms (device {dev_ms:.4f}; first build {first} ms, "
-        f"{first / ms:.1f}x), "
+        f"{ms:.4f} ms (device {dev_ms:.4f}; first build "
+        f"{'not timed' if first is None else f'{first} ms'}), "
         f"plain {plain_ms:.3f} ms, bound {bound_s * 1e3:.5f} ms "
         f"({bound_by}), whole output equal to the plain version, on {card}")
     return dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
@@ -1199,6 +1370,405 @@ def phase5_oneshot_times(runs, card):
                run["desc"].width * run["desc"].height / 1e6, card)
 
 
+def _same_whole(got, want):
+    """The largest difference over every output of two calls."""
+    return max(selfcheck.max_abs_err(g, w) for g, w in zip(
+        got if isinstance(got, tuple) else (got,),
+        want if isinstance(want, tuple) else (want,)))
+
+
+def _compact_same(cap):
+    """K3's results compared as their readers read them: counts, and each
+    plane's rows below its lane's count."""
+    def same(got, want):
+        (planes, counts), (rplanes, rcounts) = got, want
+        live = torch.arange(cap, device=counts.device)[None, :] < \
+            counts[:, None]
+        return max(selfcheck.max_abs_err(counts, rcounts), *(
+            selfcheck.max_abs_err(torch.where(live, g, 0),
+                                  torch.where(live, w, 0))
+            for g, w in zip(planes, rplanes)))
+    return same
+
+
+def _hold(held, name, err, what):
+    """Record one held shape of a kernel; fail where it differs."""
+    expect(err == 0, f"{name} disagrees with its plain version on {what}")
+    held.setdefault(name, []).append(dict(what=what, max_abs_err=err))
+
+
+def _hold_call(held, name, call, plain, what, same=_same_whole):
+    """A kernel's wrapper against its plain version on one input of its
+    path; returns the wrapper's result, which the path reads next."""
+    got = call()
+    _hold(held, name, same(got, plain()), what)
+    return got
+
+
+def _timed(name, call, plain, what, card, nbytes, ops):
+    """A held kernel call timed beside its plain version; the fields kept
+    under the kernel's row's "serving"."""
+    ms, plain_ms = timed_ms(call), timed_ms(plain, warmup=1, runs=3)
+    bound_s, bound_by = bound(nbytes, ops)
+    log(f"phase 5: {name} on {what}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_s * 1e3:.5f} ms ({bound_by}), equal to the plain "
+        f"version, on {card}")
+    return dict(what=what, max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=bound_by)
+
+
+def _reset_window(seg_flat, qb):
+    """The first row of a PLAIN_REPLAY_ROWS window that holds the first
+    stream reset inside a packed lane (a stream start past its lane's
+    first row), and the resets inside that window; (None, 0) where every
+    lane holds one stream."""
+    rows = seg_flat.cpu().numpy() % qb
+    inner = rows[rows > 0]
+    if not inner.size:
+        return None, 0
+    start = max(int(inner.min()) - 16, 0)
+    return start, int(((inner >= start)
+                       & (inner < start + PLAIN_REPLAY_ROWS)).sum())
+
+
+def _hold_packed_decode(held, staged, what):
+    """K1 and K2 on a packed decode plan as dispatch_staged runs them: K1
+    on its first and last rows and on a window over the first stream reset
+    inside a lane (meta bit 9), K2 on its whole output."""
+    regions, seg, chunks, _, _, qb, n_cap, l_total = staged
+    meta_t, val_t, pix_before = packed_lanes.lane_inputs(
+        regions, seg, chunks, qb, l_total)
+    start, resets = _reset_window(seg, qb)
+    err, full, _ = _replay_check(
+        "replay", meta_t, val_t,
+        replay_kernel.initial_state(l_total, meta_t.device), what,
+        () if start is None else (start,))
+    _hold(held, "replay", err, f"{what} ({qb} x {l_total} rows; first, "
+          f"last" + ("; no lane holds two streams)" if start is None else
+                     f" and rows {start}.., {resets} resets inside lanes "
+                     f"there)"))
+    emits = full[0].T.contiguous()
+    del full
+    _hold_call(held, "place_fill",
+               lambda: place_kernel.place_fill(pix_before, emits, n_cap),
+               lambda: place_kernel.place_fill_reference(pix_before, emits,
+                                                         n_cap),
+               f"{what} ({l_total} x {qb} rows -> {n_cap} px)")
+    return resets
+
+
+def _hold_split(held, staged, what):
+    """K3 (where the plan takes the chunk domain), K5 at every fixpoint
+    round's in-state (its first and last rows) and K2 on a split decode
+    plan, as dispatch_staged runs them."""
+    (regions, heads, chunks_sizes, px_budgets, max_chain, _, _, qb, n_cap,
+     qc) = staged
+    lanes = regions.shape[0]
+    if qc:
+        meta, val, pb, real = split.lane_fields(regions, chunks_sizes,
+                                                px_budgets, qb)
+        args = ((meta, val, pb), real, qc)
+        _hold_call(held, "compact",
+                   lambda: compact_kernel.compact_rows(*args),
+                   lambda: compact_kernel.compact_rows_reference(*args),
+                   f"{what}, 3 planes ({lanes} x {qb} -> {qc})",
+                   _compact_same(qc))
+        del meta, val, pb, real
+    meta_t, val_t, pix_before = split.lane_rows(regions, chunks_sizes,
+                                                px_budgets, qb, n_cap, qc)
+    # seam_fixpoint's rounds, each round's in-state held
+    in_p, in_s = split.initial_guess(lanes, meta_t.device)
+    rounds = 0
+    while True:
+        err, full, _ = _replay_check("replay_summary", meta_t, val_t,
+                                     (in_p, in_s), f"{what}, round {rounds}")
+        _hold(held, "replay_summary", err,
+              f"{what}, round {rounds} ({meta_t.shape[0]} x {lanes} rows)")
+        want_p, want_s, _ = split.propagate(heads, *full[1:])
+        rounds += 1
+        if bool((want_p == in_p).all() & (want_s == in_s).all()) or \
+                rounds >= max_chain + 2:
+            break
+        in_p, in_s = want_p, want_s
+    emits = full[0].T.contiguous()
+    del full
+    _hold_call(held, "place_fill",
+               lambda: place_kernel.place_fill(pix_before, emits, n_cap),
+               lambda: place_kernel.place_fill_reference(pix_before, emits,
+                                                         n_cap),
+               f"{what} ({lanes} x {pix_before.shape[1]} rows -> {n_cap} "
+               f"px)")
+    return rounds
+
+
+def _lane_encode_inputs(held, staged, what):
+    """The packed-lane encoder (ops/encode._encode_lanes_impl) on a
+    PackedEncoder plan, its K3 calls held as they run: returns the two
+    compactions' and K4's arguments and a label of each."""
+    pk_d, flags_d, _, caps, _ = staged
+    chunk_cap, out_cap, ends_cap = enc_ops.lane_caps(
+        pk_d.shape[1], caps["chunk_cap"], caps["out_cap"], caps["ends_cap"])
+    aug, posflag, keep, bits = enc_ops.lane_positions(pk_d, flags_d)
+    args = ((aug, posflag), keep, chunk_cap)
+    l, n = keep.shape
+    two = f"{what}, 2 planes ({l} x {n} -> {chunk_cap})"
+    (pk_c, pf_c), counts = _hold_call(
+        held, "compact", lambda: compact_kernel.compact_rows(*args),
+        lambda: compact_kernel.compact_rows_reference(*args), two,
+        _compact_same(chunk_cap))
+    off, tlo, thn, incl, t1, _ = enc_ops.lane_templates(pk_c, pf_c, counts,
+                                                        bits)
+    eargs = ((incl,), t1, ends_cap)
+    one = (f"{what}, 1 plane ({l} x {chunk_cap} -> {ends_cap}, "
+           f"{int(t1.sum())} stream ends)")
+    _hold_call(held, "compact", lambda: compact_kernel.compact_rows(*eargs),
+               lambda: compact_kernel.compact_rows_reference(*eargs), one,
+               _compact_same(ends_cap))
+    k4 = (off, tlo, thn, out_cap)
+    emit = f"{what} ({l} x {off.shape[1]} rows -> {out_cap} bytes)"
+    _hold_call(held, "emit", lambda: emit_kernel.emit_bytes(*k4),
+               lambda: emit_kernel.emit_bytes_reference(*k4), emit)
+    return (args, two, int(counts.sum())), (eargs, one), (k4, emit)
+
+
+def _hold_batch_encode(held, packed, n_px, channels, chunk_cap, out_cap,
+                       what):
+    """K3 and K4 on the batch encoder's input (ops/encode.
+    _encode_kernel_impl) as they run on it."""
+    chunk_cap, out_cap = enc_ops.encode_caps(packed.shape[1], channels,
+                                             chunk_cap, out_cap)
+    posflag, keep, fb = enc_ops.chunk_positions(packed, n_px)
+    args = ((packed, posflag), keep, chunk_cap)
+    b, n = keep.shape
+    (pk_c, pf_c), counts = _hold_call(
+        held, "compact", lambda: compact_kernel.compact_rows(*args),
+        lambda: compact_kernel.compact_rows_reference(*args),
+        f"{what}, 2 planes ({b} x {n} -> {chunk_cap})",
+        _compact_same(chunk_cap))
+    off, tlo, thn, _ = enc_ops.chunk_templates(pk_c, pf_c, counts, n_px, fb,
+                                               channels)
+    _hold_call(held, "emit",
+               lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap),
+               lambda: emit_kernel.emit_bytes_reference(off, tlo, thn,
+                                                        out_cap),
+               f"{what} ({b} x {off.shape[1]} rows -> {out_cap} bytes)")
+
+
+def _hold_api(held, blob, raw, d, dev, what):
+    """api's torch backend on one image: K1 on the one-shot decode's lane
+    (its first and last rows), K6 on its flagged words where every emit
+    is opaque (the engine ops/decode.expand_bytes_batch takes), and K3 and
+    K4 on the one-shot encode's B=1 input."""
+    meta, val, real, produced, pix_before, n_cap = \
+        dec_ops.single_lane_inputs(blob, d, dev)
+    err, full, _ = _replay_check("replay", meta, val,
+                                 replay_kernel.initial_state(1, dev), what)
+    _hold(held, "replay", err, f"{what} decode ({meta.shape[0]} x 1 rows)")
+    emits = full[0].reshape(1, -1)
+    del full
+    if bool((((emits >> 24) & 0xFF) == 0xFF).all()):
+        words = dec_ops.flagged_words(emits, real, produced, pix_before,
+                                      n_cap)
+        _hold_call(held, "logfill",
+                   lambda: replay_kernel.logfill_batch(words),
+                   lambda: replay_kernel.logfill_batch_reference(words),
+                   f"{what} decode ({n_cap} words)")
+    packed, _ = backend.encode_inputs(raw, d, dev)
+    _hold_batch_encode(held, packed, d.width * d.height, int(d.channels),
+                       None, None, f"{what} encode")
+
+
+def phase5_serving_kernels(s, rows, launches, card):
+    """Every kernel of the serving path, the packed lanes and the api
+    torch backend against its plain version at each shape those paths
+    give it, on the inputs they give it: K1 and K2 on every packed decode
+    tier and on PackedDecoder's own plan (K1 also on a window over the
+    first stream reset inside a lane), K3, K5 at every fixpoint round and
+    K2 on every split group, K3's two compactions and K4 on every packed
+    encode tier and on PackedEncoder's own lanes, K3 and K4 on every
+    geometry bucket, and K1, K6, K3 and K4 on api's images; kept in each
+    kernel's row under "held_at".  K1 and K2 on the first decode tier and
+    K3 and K4 on the first encode tier are also timed beside their plain
+    versions (the row's "serving")."""
+    codec, blobs, raws, descs = (s[k] for k in ("codec", "blobs", "raws",
+                                                "descs"))
+    dev = codec.device
+    by_name = {r["name"]: r for r in rows}
+    held = {}
+    _, dec_tiers, split_groups = codec.decode_stage(blobs)
+    resets = [_hold_packed_decode(held, staged, f"serving packed decode "
+                                  f"tier {t} ({len(idxs)} streams)")
+              for t, (idxs, staged) in enumerate(dec_tiers)]
+    for g, (grp, staged) in enumerate(split_groups):
+        _hold_split(held, staged, f"serving split group {g} ({len(grp)} "
+                    f"streams)")
+    resets.append(_hold_packed_decode(
+        held, s["packed"]["dec"].stage_to_device(blobs),
+        f"PackedDecoder ({len(blobs)} streams)"))
+    expect(resets[0] and resets[-1], "no reset inside a lane was held on "
+           "the first decode tier or PackedDecoder's plan")
+    _, enc_tiers, buckets = codec.encode_stage(raws, descs)
+    enc0 = None  # the first tier's inputs, timed below
+    for t, (tier, staged) in enumerate(enc_tiers):
+        got = _lane_encode_inputs(held, staged, f"serving packed encode "
+                                  f"tier {t} ({len(tier)} streams)")
+        enc0 = enc0 or got
+    for idxs, pipe, batch_d, d in buckets:
+        _hold_batch_encode(
+            held, pipe.raw_to_packed(batch_d), pipe.n_px, pipe.channels,
+            pipe.chunk_cap, pipe.out_cap,
+            f"serving bucket {d.width}x{d.height}x{int(d.channels)} "
+            f"({len(idxs)} of {batch_d.shape[0]} lanes)")
+    _lane_encode_inputs(held, s["packed"]["enc"].stage_to_device(raws,
+                                                                 descs),
+                        f"PackedEncoder ({len(raws)} streams)")
+    for name in API_IMAGES:
+        i = s["names"].index(name)
+        _hold_api(held, s["blobs"][i], s["raws"][i], s["descs"][i], dev,
+                  f"api [{name}]")
+    for name in ("replay", "place_fill", "replay_summary", "compact", "emit",
+                 "logfill"):
+        expect(name in held, f"phase 5 held {name} at no serving shape")
+
+    # timed: K1 and K2 on the first decode tier, K3 and K4 on the first
+    # encode tier
+    regions, seg, chunks, _, _, qb, n_cap, l_total = dec_tiers[0][1]
+    meta_t, val_t, pix_before = packed_lanes.lane_inputs(
+        regions, seg, chunks, qb, l_total)
+    start, _ = _reset_window(seg, qb)  # held above, so not None
+    k1 = _replay_row("replay", meta_t, val_t, replay_kernel.initial_state(
+        l_total, meta_t.device), launches, card,
+        f"serving packed decode tier of {len(dec_tiers[0][0])} streams",
+        (start,))
+    by_name["replay"]["serving"] = {
+        k: k1[k] for k in ("rows", "lanes", "max_abs_err", "ms", "plain_ms",
+                           "plain_rows", "ms_on_plain_rows", "bound_ms",
+                           "ns_per_row", "state_rows", "ns_per_state_row")}
+    emits = replay_kernel.replay_batch(meta_t, val_t).T.contiguous()
+    k2 = _place_fill_time(pix_before, emits, n_cap, "serving packed", card)
+    by_name["place_fill"]["serving"] = {
+        k: k2[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "rows",
+                           "images", "n_cap")}
+    del meta_t, val_t, pix_before, emits
+
+    (args, two, kept), (eargs, one), (k4, emit) = enc0
+    (_, keep, cap), (_, t1, ends_cap) = args, eargs
+    l, n = keep.shape
+    nseg = int(t1.sum())
+    by_name["compact"]["serving"] = dict(
+        two_planes=_timed(
+            "compact", lambda: compact_kernel.compact_rows(*args),
+            lambda: compact_kernel.compact_rows_reference(*args),
+            f"{two}, {kept} kept", card, l * n + 16 * kept + 4 * l,
+            OPS_PER_ELEMENT["compact"] * l * n),
+        one_plane=_timed(
+            "compact", lambda: compact_kernel.compact_rows(*eargs),
+            lambda: compact_kernel.compact_rows_reference(*eargs), one,
+            card, l * cap + 8 * nseg + 4 * l,
+            OPS_PER_ELEMENT["compact"] * l * cap))
+    by_name["emit"]["serving"] = _timed(
+        "emit", lambda: emit_kernel.emit_bytes(*k4),
+        lambda: emit_kernel.emit_bytes_reference(*k4), emit, card,
+        12 * k4[0].numel() + l * k4[3], OPS_PER_ELEMENT["emit"] * l * k4[3])
+    for name, shapes in held.items():
+        row = by_name[name]
+        row["held_at"] = shapes
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 *(h["max_abs_err"] for h in shapes))
+    log(f"phase 5: held against their plain versions at the serving, "
+        f"packed and api paths' shapes: "
+        f"{ {k: len(v) for k, v in held.items()} }")
+
+
+def _sync_after(fn):
+    """fn, then a wait for the device: a path's time to completion."""
+    def run():
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def phase5_serving_times(s, card):
+    """The serving path's times on the serving corpus, MPix/s: decode to
+    completion (plan, upload, kernels), pre-staged, from the resident
+    corpus, overlapped, end to end with the fetch; encode to completion,
+    pre-staged, end to end."""
+    codec, blobs, raws, descs, mpix = (
+        s[k] for k in ("codec", "blobs", "raws", "descs", "mpix"))
+    what = f"serving[{len(blobs)} requests]"
+    _time_path(f"{what} decode_dispatch to completion",
+               _sync_after(lambda: codec.decode_dispatch(blobs)), mpix, card)
+    staged = codec.decode_stage(blobs)
+    torch.cuda.synchronize()
+    _time_path(f"{what} decode_dispatch_staged (pre-staged)",
+               lambda: codec.decode_dispatch_staged(staged), mpix, card)
+    _time_path(f"{what} resident decode_device", s["resident"].decode_device,
+               mpix, card)
+    _time_path(f"{what} decode_dispatch_overlapped to completion",
+               _sync_after(lambda: codec.decode_dispatch_overlapped(blobs)),
+               mpix, card)
+    _time_path(f"{what} decode end to end (with the fetch)",
+               lambda: codec.decode(blobs), mpix, card)
+    _time_path(f"{what} encode_dispatch to completion",
+               _sync_after(lambda: codec.encode_dispatch(raws, descs)), mpix,
+               card)
+    estaged = codec.encode_stage(raws, descs)
+    torch.cuda.synchronize()
+    _time_path(f"{what} encode_dispatch_staged (pre-staged)",
+               lambda: codec.encode_dispatch_staged(estaged), mpix, card)
+    _time_path(f"{what} encode end to end (with the fetch)",
+               lambda: codec.encode(raws, descs), mpix, card)
+
+
+def phase5_packed_times(s, card):
+    """PackedDecoder and PackedEncoder alone on the serving corpus:
+    decode to completion and end to end, encode to completion, pre-staged
+    and end to end; then, by the host clock, the planners and the serving
+    path's fetch (decode_finish after a resident decode, encode_finish
+    after a pre-staged encode, each with its device work)."""
+    dec, enc = s["packed"]["dec"], s["packed"]["enc"]
+    blobs, raws, descs, mpix = (s[k] for k in ("blobs", "raws", "descs",
+                                               "mpix"))
+    estaged = s["codec"].encode_stage(raws, descs)
+    what = f"packed[{len(blobs)} streams]"
+    _time_path(f"{what} PackedDecoder.decode_to_device to completion",
+               _sync_after(lambda: dec.decode_to_device(blobs)), mpix, card)
+    _time_path(f"{what} PackedDecoder.decode end to end",
+               lambda: dec.decode(blobs), mpix, card)
+    _time_path(f"{what} PackedEncoder stage and dispatch to completion",
+               _sync_after(lambda: enc.dispatch_staged(
+                   enc.stage_to_device(raws, descs))), mpix, card)
+    staged = enc.stage_to_device(raws, descs)
+    torch.cuda.synchronize()
+    _time_path(f"{what} PackedEncoder.dispatch_staged (pre-staged)",
+               lambda: enc.dispatch_staged(staged), mpix, card)
+    _time_path(f"{what} PackedEncoder.encode end to end",
+               lambda: enc.encode(raws, descs), mpix, card)
+    # the host's share: planning (numpy), and the fetch with the cutting
+    # and unpacking of every stream, by the host clock (3 calls, the last
+    # two's mean)
+    for label, fn in (
+            ("PackedDecoder.plan_and_pack", lambda: dec.plan_and_pack(blobs)),
+            ("PackedEncoder.plan_and_pack",
+             lambda: enc.plan_and_pack(raws, descs)),
+            ("serving resident decode_device + decode_finish (fetch, cut, "
+             "unpack)",
+             lambda: s["codec"].decode_finish(s["resident"].decode_device())),
+            ("serving encode_dispatch_staged + encode_finish (fetch, cut)",
+             lambda: s["codec"].encode_finish(
+                 s["codec"].encode_dispatch_staged(estaged)))):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"phase 5: host clock, {what} {label}: {np.mean(ms[1:]):.2f} ms "
+            f"(calls {', '.join(f'{m:.2f}' for m in ms)}) on {card}")
+
+
 def main():
     card = phase0_device()
     dev = torch.device("cuda")
@@ -1241,6 +1811,14 @@ def main():
     drive("the profile_r2 probes (E8, E9)",
           lambda: phase3_probes(runs[0], results, dev),
           ("grid_step", "onehot_place"), launches)
+    serve = phase3_prepare_serving(dev)
+    drive("the serving path", lambda: phase3_serving(serve),
+          ("replay", "place_fill", "replay_summary", "compact", "emit"),
+          launches)
+    drive("the packed lanes", lambda: phase3_packed(serve, dev),
+          ("replay", "place_fill", "compact", "emit"), launches)
+    drive("the api torch backend", lambda: phase3_api(serve, dev),
+          ("replay", "logfill", "compact", "emit"), launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
     k5, k2_split = phase5_split_kernels(sparse, launches, card)
@@ -1257,6 +1835,7 @@ def main():
     rows.append(phase5_place_grouped(results, launches, dev, card))
     rows.append(phase5_emit_window(results, launches, dev, card))
     rows.extend(phase5_probes(results, launches, card))
+    phase5_serving_kernels(serve, rows, launches, card)
     for run in runs:
         phase5_pipeline_times(run, card)
     for run in split_runs:
@@ -1266,6 +1845,8 @@ def main():
         d = st["im"]["desc"]
         _time_path(st["label"], lambda st=st: _stream_session(st, dev),
                    d.width * d.height / 1e6, card)
+    phase5_serving_times(serve, card)
+    phase5_packed_times(serve, card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
-"""QOI types, constants and header I/O of the port's host layer.
+"""QOI types, constants, validation and header I/O of the port's host layer.
 
-A copy of what the port needs from ``qoipp_tpu.common``, kept here so the
-port imports nothing of the JAX package: the same enums, the same ``Desc``,
+A copy of ``qoipp_tpu.common``, kept here so the port imports nothing of
+the JAX package: the same enums, value types, ``Result``, size math and
 the same 14-byte header on both sides.  Pure Python and numpy.
 """
 
@@ -12,7 +12,7 @@ import os
 import struct
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Generic, Optional, TypeVar, Union
+from typing import Callable, Generic, Iterator, Optional, TypeVar, Union
 
 import numpy as np
 
@@ -20,6 +20,29 @@ MAGIC = b"qoif"
 HEADER_SIZE = 14
 END_MARKER = bytes([0, 0, 0, 0, 0, 0, 0, 1])
 END_MARKER_SIZE = 8
+RUNNING_ARRAY_SIZE = 64
+RUN_LIMIT = 62
+
+# op tags
+OP_RGB = 0xFE
+OP_RGBA = 0xFF
+OP_INDEX = 0x00
+OP_DIFF = 0x40
+OP_LUMA = 0x80
+OP_RUN = 0xC0
+
+# biases and the DIFF/LUMA ranges
+BIAS_OP_RUN = -1
+BIAS_OP_DIFF = 2
+BIAS_OP_LUMA_G = 32
+BIAS_OP_LUMA_RB = 8
+MIN_DIFF, MAX_DIFF = -2, 1
+MIN_LUMA_G, MAX_LUMA_G = -32, 31
+MIN_LUMA_RB, MAX_LUMA_RB = -8, 7
+
+# the codec's start pixel
+START_PIXEL = (0x00, 0x00, 0x00, 0xFF)
+
 _SIZE_T_MAX = 2**64 - 1
 
 
@@ -59,6 +82,52 @@ class Error(enum.IntEnum):
     BAD_ALLOC = 14
 
 
+_ERROR_STRINGS = {
+    Error.EMPTY: "Data is empty",
+    Error.TOO_SHORT: "Data is too short",
+    Error.TOO_BIG: "Image is too big to process",
+    Error.NOT_QOI: "Not a QOI file",
+    Error.INVALID_DESC: "Image description is invalid",
+    Error.MISMATCHED_DESC: "Image description does not match the data",
+    Error.NOT_ENOUGH_SPACE: "Buffer does not have enough space",
+    Error.NOT_REGULAR_FILE: "Not a regular file",
+    Error.FILE_EXISTS: "File already exists",
+    Error.FILE_NOT_EXISTS: "File does not exist",
+    Error.IO_ERROR: "Unable to do read or write operation",
+    Error.BAD_ALLOC: "Failed to allocate memory",
+    Error.NOT_INITIALIZED: "Stream encoder/decoder is not initialized yet",
+    Error.ALREADY_INITIALIZED: "Stream encoder/decoder already initialized",
+}
+
+
+def to_string(error: Error) -> str:
+    """Human-readable description of an error code."""
+    return _ERROR_STRINGS.get(error, "Unknown")
+
+
+def to_channels(channels: int) -> Optional[Channels]:
+    """3/4 -> Channels, else None."""
+    return Channels(channels) if channels in (3, 4) else None
+
+
+def to_colorspace(colorspace: int) -> Optional[Colorspace]:
+    """0/1 -> Colorspace, else None."""
+    return Colorspace(colorspace) if colorspace in (0, 1) else None
+
+
+@dataclass(frozen=True)
+class Pixel:
+    """One RGBA pixel."""
+
+    r: int
+    g: int
+    b: int
+    a: int = 0xFF
+
+    def __iter__(self) -> Iterator[int]:
+        return iter((self.r, self.g, self.b, self.a))
+
+
 @dataclass(frozen=True)
 class Desc:
     """QOI image description."""
@@ -68,12 +137,44 @@ class Desc:
     channels: Channels
     colorspace: Colorspace = Colorspace.SRGB
 
+    def replace(self, **kw) -> "Desc":
+        d = dict(width=self.width, height=self.height,
+                 channels=self.channels, colorspace=self.colorspace)
+        d.update(kw)
+        return Desc(**d)
+
+
+@dataclass
+class Image:
+    """Raw decoded bytes (1-D uint8, width * height * channels long) and
+    their description."""
+
+    data: np.ndarray
+    desc: Desc
+
+
+@dataclass(frozen=True)
+class EncodeStatus:
+    """Result of a (possibly partial) encode_into."""
+
+    written: int
+    complete: bool
+
+
+@dataclass(frozen=True)
+class StreamResult:
+    """Bytes processed and written by one streaming call."""
+
+    processed: int
+    written: int
+
 
 T = TypeVar("T")
 
 
 class Result(Generic[T]):
-    """A value or an Error; truthy iff it holds a value."""
+    """A value or an Error; truthy iff it holds a value.  ``value()``
+    raises on an error, ``error()`` on a value."""
 
     __slots__ = ("_value", "_error")
 
@@ -92,12 +193,15 @@ class Result(Generic[T]):
     def err(error: Error) -> "Result[T]":
         return Result(error=error)
 
-    def __bool__(self) -> bool:
+    def has_value(self) -> bool:
         return self._error is None
+
+    def __bool__(self) -> bool:
+        return self.has_value()
 
     def value(self) -> T:
         if self._error is not None:
-            raise ValueError(f"Result holds error: {self._error.name}")
+            raise ValueError(f"Result holds error: {to_string(self._error)}")
         return self._value  # type: ignore[return-value]
 
     def error(self) -> Error:
@@ -105,13 +209,21 @@ class Result(Generic[T]):
             raise ValueError("Result holds a value, not an error")
         return self._error
 
+    def value_or(self, default: T) -> T:
+        return self._value if self._error is None else default  # type: ignore
 
-def _to_channels(c: int) -> Optional[Channels]:
-    return Channels(c) if c in (3, 4) else None
+    def __repr__(self) -> str:
+        if self._error is None:
+            return f"Result.ok({self._value!r})"
+        return f"Result.err({self._error!r})"
 
 
-def _to_colorspace(c: int) -> Optional[Colorspace]:
-    return Colorspace(c) if c in (0, 1) else None
+def make_result(value: T) -> Result[T]:
+    return Result.ok(value)
+
+
+def make_error(error: Error) -> Result:
+    return Result.err(error)
 
 
 def is_valid(desc: Desc) -> bool:
@@ -145,6 +257,9 @@ def worst_size(desc: Desc) -> Result[int]:
                   + HEADER_SIZE + END_MARKER_SIZE)
 
 
+BytesLike = Union[bytes, bytearray, memoryview, np.ndarray]
+
+
 def write_header(desc: Desc) -> bytes:
     """The 14-byte QOI header: magic, big-endian width and height,
     channels, colorspace."""
@@ -152,8 +267,7 @@ def write_header(desc: Desc) -> bytes:
             + bytes([int(desc.channels), int(desc.colorspace)]))
 
 
-def read_header(data: Union[bytes, bytearray, memoryview, np.ndarray, str,
-                            os.PathLike]) -> Result[Desc]:
+def read_header(data: Union[BytesLike, str, os.PathLike]) -> Result[Desc]:
     """Parse and validate the QOI header at the start of ``data``, or of
     the file at a ``str`` or ``os.PathLike`` path: FILE_NOT_EXISTS,
     NOT_REGULAR_FILE, or IO_ERROR where the file cannot be read or holds
@@ -180,8 +294,14 @@ def read_header(data: Union[bytes, bytearray, memoryview, np.ndarray, str,
     if data[:4] != MAGIC:
         return Result(error=Error.NOT_QOI)
     width, height = struct.unpack(">II", data[4:12])
-    channels = _to_channels(data[12])
-    colorspace = _to_colorspace(data[13])
+    channels = to_channels(data[12])
+    colorspace = to_colorspace(data[13])
     if channels is None or colorspace is None or width == 0 or height == 0:
         return Result(error=Error.INVALID_DESC)
     return Result(Desc(width, height, channels, colorspace))
+
+
+# callback types of the pixel generator, pixel sink and byte sink overloads
+PixelGenFun = Callable[[int], Pixel]
+PixelSinkFun = Callable[[Pixel], None]
+ByteSinkFun = Callable[[int], None]

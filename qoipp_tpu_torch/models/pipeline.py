@@ -151,15 +151,20 @@ class BatchPipeline:
         parts = [self._encode(packed[i : i + sub]) for i in range(0, b, sub)]
         return tuple(torch.cat(x) for x in zip(*parts))
 
-    def encode_raw_checked(self, raws):
-        """(B, n_px*C) uint8 -> (streams, lengths, ok): pixel packing,
-        padding to nb and encode."""
+    def raw_to_packed(self, raws):
+        """(B, n_px*C) uint8 -> (B, nb) int32 pixel words, zero past
+        n_px: the encoder's input."""
         packed = pixels_to_packed(self._to_device(raws, torch.uint8),
                                   self.channels)
         pad = self.nb - self.n_px
         if pad:
             packed = torch.nn.functional.pad(packed, (0, pad))
-        return self._encode(packed)
+        return packed
+
+    def encode_raw_checked(self, raws):
+        """(B, n_px*C) uint8 -> (streams, lengths, ok): pixel packing,
+        padding to nb and encode."""
+        return self._encode(self.raw_to_packed(raws))
 
     def encode(self, raws):
         """(B, H, W, C) or (B, n_px*C) uint8 -> (streams, lengths)."""

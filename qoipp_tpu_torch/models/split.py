@@ -33,14 +33,16 @@ import numpy as np
 import torch
 
 from .. import oracle
-from ..common import read_header
+from ..convert import words_to_numpy
 from ..ops import boundary
 from ..ops import compact_kernel as ck
 from ..ops import decode as dec_ops
 from ..ops import place_kernel
 from ..ops import replay_kernel as rk
 from ..ops.bitops import START_PIXEL_PACKED
-from .packed import _bucket_mult, _round_up, _unpack_pixels_np
+from ..utils.transfer import upload
+from .packed import (_bucket_mult, _parse_streams, _round_up,
+                     _unpack_pixels_np)
 
 
 def _compact_cap(max_chunks: int, qb: int) -> int:
@@ -113,18 +115,27 @@ def propagate(heads, out_p, out_s, pupd, swr, base=None):
     return state[:1], state[1:], fin[:, 0]
 
 
-def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
-              qc: int = 0):
-    """The stages before the fixpoint: (L, qb + 8) uint8 segment bytes ->
-    (meta, val) rows (width, L) int32 for K5, lane-major (views of the
-    (L, width) planes), and (L, width) int32 pixel offsets for K2, width =
-    qc or qb."""
+def lane_fields(regions, chunks_sizes, px_budgets, qb: int):
+    """The byte-domain stages: (L, qb + 8) uint8 segment bytes -> (meta,
+    val, pix_before) (L, qb) int32 and real (L, qb) bool, the chunk
+    starts (K3's keep where the chunk domain is taken)."""
     info = boundary.analyze_region_batch(regions[:, :qb], chunks_sizes, 0)
     real = info["real"]
     # clamp at the walker's per-segment pixel span, which stops RUN
     # production at w * h as the reference decoder does
     pix_before = torch.minimum(info["pix_before"], px_budgets[:, None])
     meta, val = dec_ops.fields_dense_batch(regions, real)
+    return meta, val, pix_before, real
+
+
+def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
+              qc: int = 0):
+    """The stages before the fixpoint: (L, qb + 8) uint8 segment bytes ->
+    (meta, val) rows (width, L) int32 for K5, lane-major (views of the
+    (L, width) planes), and (L, width) int32 pixel offsets for K2, width =
+    qc or qb."""
+    meta, val, pix_before, real = lane_fields(regions, chunks_sizes,
+                                              px_budgets, qb)
     if qc:
         meta, val, pix_before = _compact_chunks(meta, val, pix_before, real,
                                                 n_cap, qc)
@@ -237,7 +248,7 @@ class SplitDecoder:
     def gather(packed, where, descs) -> List[np.ndarray]:
         """decode_to_device's lanes -> each stream's raw pixels (numpy
         uint8), one host fetch."""
-        packed = packed.cpu().numpy().view(np.uint32)
+        packed = words_to_numpy(packed)
         out = []
         for segs, d in zip(where, descs):
             px = np.empty(d.width * d.height, np.uint32)
@@ -257,14 +268,13 @@ class SplitDecoder:
         return self.stage_plan(self.plan_and_pack(blobs))
 
     def stage_plan(self, plan):
-        """Upload a plan_and_pack host plan to the decoder's device."""
+        """Upload a plan_and_pack host plan to the decoder's device (pinned
+        memory, asynchronous copies)."""
         (regions, heads, chunks_sizes, px_budgets, where, descs, qb, n_cap,
          max_chain, qc) = plan
         dev = self.device
-        return (torch.from_numpy(regions).to(dev),
-                torch.from_numpy(heads).to(dev),
-                torch.from_numpy(chunks_sizes).to(dev),
-                torch.from_numpy(px_budgets).to(dev),
+        return (upload(regions, dev), upload(heads, dev),
+                upload(chunks_sizes, dev), upload(px_budgets, dev),
                 max_chain, where, descs, qb, n_cap, qc)
 
     def dispatch_staged(self, staged):
@@ -281,17 +291,7 @@ class SplitDecoder:
         chunks_sizes (L,) i32, px_budgets (L,) i32, where, descs, qb,
         n_cap, max_chain, qc: the chunk-domain width, 0 for the byte
         domain)."""
-        arrs = [
-            np.frombuffer(bytes(x), np.uint8)
-            if not isinstance(x, np.ndarray) else x
-            for x in blobs
-        ]
-        descs = []
-        for a in arrs:
-            h = read_header(a)
-            if not h:
-                raise ValueError(f"bad stream: {h.error()}")
-            descs.append(h.value())
+        arrs, descs = _parse_streams(blobs)
         sizes = [a.size - 22 for a in arrs]
         if any(s < 1 for s in sizes):
             raise ValueError("truncated stream (no body bytes)")

@@ -18,10 +18,11 @@ from . import encode as enc_ops
 from .bitops import pixels_to_packed
 
 
-def encode_single(raw, desc: Desc, device=None) -> np.ndarray:
-    """Encode one image's raw bytes -> QOI byte stream (numpy), bit-exact
-    with the reference encoder."""
-    dev = torch.device("cuda" if device is None else device)
+def encode_inputs(raw, desc: Desc, device):
+    """One image's raw bytes -> the batch encoder's input at B=1: (1, nb)
+    int32 pixel words, nb the JAX package's pixel bucket, and the (14,)
+    uint8 header, on ``device``."""
+    dev = torch.device(device)
     channels = int(desc.channels)
     n_px = desc.width * desc.height
     nb = enc_ops.bucket_size(n_px)
@@ -31,8 +32,16 @@ def encode_single(raw, desc: Desc, device=None) -> np.ndarray:
                               channels)
     header = torch.from_numpy(
         np.frombuffer(write_header(desc), dtype=np.uint8).copy()).to(dev)
-    out, total_len, _ = enc_ops.encode_batch_checked(packed[None], n_px,
-                                                     header, channels)
+    return packed[None], header
+
+
+def encode_single(raw, desc: Desc, device=None) -> np.ndarray:
+    """Encode one image's raw bytes -> QOI byte stream (numpy), bit-exact
+    with the reference encoder."""
+    dev = torch.device("cuda" if device is None else device)
+    packed, header = encode_inputs(raw, desc, dev)
+    out, total_len, _ = enc_ops.encode_batch_checked(
+        packed, desc.width * desc.height, header, int(desc.channels))
     return out[0, : int(total_len[0])].cpu().numpy()
 
 

@@ -126,11 +126,11 @@ def _bucket(n: int, lo: int = 128) -> int:
     return b
 
 
-def expansion_inputs(data, desc: Desc, device):
-    """The stages of decode_single before the expansion: the boundary pass
-    over a window widened until the image's pixels are owed, the dense
-    fields and K1 on one lane.  Returns (emits, real, produced,
-    pix_before), each (1, qb), and n_cap, the pixel bucket."""
+def single_lane_inputs(data, desc: Desc, device):
+    """The stages of decode_single before K1: the boundary pass over a
+    window widened until the image's pixels are owed, and the dense
+    fields.  Returns K1's rows (meta, val), each (qb, 1) int32, real,
+    produced and pix_before, each (1, qb), and n_cap, the pixel bucket."""
     data = np.asarray(data, dtype=np.uint8).reshape(-1)
     size = int(data.size)
     n_px = desc.width * desc.height
@@ -151,9 +151,18 @@ def expansion_inputs(data, desc: Desc, device):
 
     real = info["real"][None]
     meta, val = fields_dense_batch(region[None], real)
-    emits = rk.replay_batch(meta.reshape(-1, 1), val.reshape(-1, 1))
-    return (emits.reshape(1, -1), real, info["produced"][None],
-            info["pix_before"][None], _bucket(n_px, 128))
+    return (meta.reshape(-1, 1), val.reshape(-1, 1), real,
+            info["produced"][None], info["pix_before"][None],
+            _bucket(n_px, 128))
+
+
+def expansion_inputs(data, desc: Desc, device):
+    """single_lane_inputs and K1 on its one lane: returns (emits, real,
+    produced, pix_before), each (1, qb), and n_cap, the pixel bucket."""
+    meta, val, real, produced, pix_before, n_cap = single_lane_inputs(
+        data, desc, device)
+    emits = rk.replay_batch(meta, val)
+    return emits.reshape(1, -1), real, produced, pix_before, n_cap
 
 
 def decode_single(data, desc: Desc, dst_channels: Channels, device=None

@@ -277,3 +277,196 @@ def encode_batch_checked(packed, n_px: int, header, channels: int, *,
                                      out_cap)
     return _encode_kernel_impl(packed, n_px, header, channels, chunk_cap,
                                out_cap)
+
+
+# ---------------------------------------------------------------------------
+# Packed-lane encode: many whole streams per compaction and emission lane
+# (models/packed.PackedEncoder), the port of the JAX package's
+# _encode_lanes_impl.  Streams of any geometry and channels lie back to
+# back in a lane's pixel domain, each followed by two tail slots whose
+# compacted rows carry its trailing run and end marker; a flag plane built
+# at pack time marks stream starts, tail slots and real pixels.
+# ---------------------------------------------------------------------------
+
+FLAG_SEG_START = 1  # first pixel of a stream
+FLAG_TAIL0 = 2      # tail slot: trailing-run byte + end-marker bytes 0..4
+FLAG_TAIL1 = 4      # tail slot: end-marker bytes 5..7
+FLAG_VALID = 8      # a real pixel
+
+
+def _last_same_hash_value_seg(packed, h, noneq, seg):
+    """_last_same_hash_value for packed lanes: entry j is visible to
+    position i iff j < i, noneq[j], h[j] == h[i] and seg[j] == seg[i]; a
+    position with none reads the fresh table's 0 (a real value: pixel
+    (0, 0, 0, 0) hits a fresh table).  seg is nondecreasing along each row,
+    so grouping by seg * 64 + hash keeps every predecessor inside its own
+    stream.  packed/h/noneq/seg: (B, N) or (N,)."""
+    return _last_same_hash_value(packed, seg.to(torch.int64) * 64 + h, noneq)
+
+
+def _shift_right(x, k: int, fill=0):
+    """x (B, N) moved k columns right along each row, fill in front."""
+    return torch.cat([torch.full_like(x[:, :k], fill), x[:, :-k]], dim=1)
+
+
+def lane_positions(packed, flags):
+    """Stage 1 of the lane encoder: packed (L, Np) int32, flags (L, Np)
+    uint8 -> (packed_aug, posflag, keep, bits): the rows K3 keeps
+    (differing pixels, RUN-62 flush points, the tail slots), each pixel
+    word with the tail slots' trailing-run byte and has_trail bit in its
+    place, each position with the tail0, tail1 and differing flags at the
+    bit positions bits = (b_t0, b_t1, b_nq)."""
+    l, np_ = packed.shape
+    idx = torch.arange(np_, dtype=torch.int32, device=packed.device).expand(
+        l, np_)
+    f = flags.to(torch.int32)
+    seg_start = (f & FLAG_SEG_START) != 0
+    t0_d = (f & FLAG_TAIL0) != 0
+    t1_d = (f & FLAG_TAIL1) != 0
+    valid = (f & FLAG_VALID) != 0
+
+    # dense pass, reset at every stream start
+    prev = torch.where(seg_start, START_PIXEL_PACKED,
+                       _shift_right(packed, 1, START_PIXEL_PACKED))
+    eq_raw = (packed == prev) & valid
+    noneq = valid & ~eq_raw
+    seg_base = torch.cummax(torch.where(seg_start, idx, 0), dim=1).values
+    last_brk = torch.maximum(
+        torch.cummax(torch.where(noneq, idx, -1), dim=1).values, seg_base - 1)
+    cnt = idx - last_brk
+    hit62 = eq_raw & (cnt % 62 == 0)
+
+    # the run pending at a stream's end, read at its tail0 slot (1 past its
+    # last pixel) and tail1 slot (2 past): both rows need has_trail
+    trail_expr = torch.where(eq_raw, cnt % 62, 0)
+    trailing = torch.where(t0_d, _shift_right(trail_expr, 1),
+                           torch.where(t1_d, _shift_right(trail_expr, 2), 0))
+    has_trail = (trailing > 0).to(torch.int32)
+    trail_byte = TAG_RUN | ((trailing - 1) & 0x3F)
+    packed_aug = torch.where(
+        t0_d, trail_byte | (has_trail << 8),
+        torch.where(t1_d, has_trail << 8, packed))
+    bits = (21, 22, 23) if np_ <= 1 << 21 else (26, 27, 30)
+    b_t0, b_t1, b_nq = bits
+    posflag = (idx | (t0_d.to(torch.int32) << b_t0)
+               | (t1_d.to(torch.int32) << b_t1)
+               | (noneq.to(torch.int32) << b_nq))
+    keep = noneq | hit62 | t0_d | t1_d
+    return packed_aug, posflag, keep, bits
+
+
+def lane_templates(pk_c, pf_c, counts, bits):
+    """Stage 3 of the lane encoder: the compacted rows (L, chunk_cap) int32
+    and their counts -> (off, tlo, thn, incl, t1, total_len): each row's
+    byte offset and 6-byte template (thn bits 16+ the byte count), with a
+    1-byte sentinel row at counts; incl = off + the row's bytes, which is
+    a stream's exclusive end at its tail1 rows (t1); each lane's bytes."""
+    l, chunk_cap = pk_c.shape
+    b_t0, b_t1, b_nq = bits
+    rows = torch.arange(chunk_cap, dtype=torch.int32, device=pk_c.device)[
+        None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    pf_c = torch.where(valid_c, pf_c, 0)
+    pos = pf_c & ((1 << b_t0) - 1)
+    t0 = valid_c & (((pf_c >> b_t0) & 1) == 1)
+    t1 = valid_c & (((pf_c >> b_t1) & 1) == 1)
+    nq_c = valid_c & (((pf_c >> b_nq) & 1) == 1)
+    is_tail = t0 | t1
+    run_row = valid_c & ~nq_c & ~is_tail  # RUN-62 flush rows
+
+    # a chunk row's stream: the tail1 rows strictly before it
+    t1_i = t1.to(torch.int32)
+    seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
+    # prev pixel: the previous chunk row's, the start pixel on a stream's
+    # first row (row 0, or the row after a tail1)
+    after_t1 = _shift_right(t1, 1, True)
+    prev_c = torch.where(after_t1, START_PIXEL_PACKED,
+                         _shift_right(pk_c, 1, START_PIXEL_PACKED))
+    gap = torch.where(valid_c, pos - _shift_right(pos, 1, -1) - 1, 0)
+
+    # op selection on the chunk rows, the table reset at every stream; an
+    # RGB stream packs alpha 255 everywhere, so the RGBA test never fires
+    # for it and needs no channel count
+    h = hash6(pk_c)
+    table_val = _last_same_hash_value_seg(pk_c, h, nq_c, seg_c)
+    own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, 4)
+    run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
+    has_run = torch.where(nq_c, gap > 0, run_row)
+    tlo, thn = pack_templates(own_len, own, has_run, run_byte)
+
+    # tail rows: the trailing-run byte and the 8-byte end marker split 6 +
+    # (2 | 3): tail0 [run or 0, 0 x 5], tail1 [0, 1] or [0, 0, 1]
+    ht = (pk_c >> 8) & 1
+    tlo = torch.where(t0, ht * (pk_c & 0xFF),
+                      torch.where(t1, ((1 - ht) << 8) | (ht << 16), tlo))
+    thn = torch.where(t0, 6 << 16, torch.where(t1, (2 + ht) << 16, thn))
+
+    # a 1-byte sentinel row at counts (clamped into the rows, as JAX's
+    # dynamic_update_slice clamps) keeps the last real row covered in K4
+    at = counts.clamp(max=chunk_cap - 1).to(torch.int64)[:, None]
+    tlo = tlo.scatter(1, at, 0)
+    thn = thn.scatter(1, at, 1 << 16)
+
+    nb_c = torch.where(rows <= counts[:, None], (thn >> 16) & 0xFFFF, 0)
+    incl = torch.cumsum(nb_c, dim=1, dtype=torch.int32)
+    total_len = incl[:, -1] - 1  # sentinel byte excluded
+    return incl - nb_c, tlo, thn, incl, t1, total_len
+
+
+def _encode_lanes_impl(packed, flags, chunk_cap: int, out_cap: int,
+                       ends_cap: int):
+    """Segmented compact-first encode over packed pixel lanes.
+
+    packed: (L, Np) int32 pixel words (tail slots and padding arbitrary);
+    flags:  (L, Np) uint8 FLAG_* bits.
+    Returns (out (L, out_cap) uint8 bodies, ends (L, ends_cap) int32 each
+    stream's exclusive byte end in pack order (0 past nseg), nseg (L,)
+    int32, ok (L,) bool).  Stream s of a lane is out[ends[s-1]:ends[s]];
+    headers are not emitted (the caller knows them)."""
+    dev = packed.device
+    packed_aug, posflag, keep, bits = lane_positions(packed, flags)
+    # K3: to the chunk domain
+    (pk_c, pf_c), counts = compact_rows((packed_aug, posflag), keep,
+                                        cap=chunk_cap)
+    off, tlo, thn, incl, t1, total_len = lane_templates(pk_c, pf_c, counts,
+                                                        bits)
+    # each stream's exclusive byte end sits at its tail1 row: a second,
+    # one-plane K3 call over the chunk rows
+    (ends,), nseg = compact_rows((incl,), t1, cap=ends_cap)
+    cols = torch.arange(ends_cap, dtype=torch.int32, device=dev)[None, :]
+    ends = torch.where(cols < nseg[:, None], ends, 0)
+
+    out = emit_bytes(off, tlo, thn, out_cap)
+    col = torch.arange(out_cap, dtype=torch.int32, device=dev)[None, :]
+    out = torch.where(col < total_len[:, None], out, 0)
+    ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
+    return out, ends, nseg, ok
+
+
+def encode_lanes_checked(packed, flags, *, chunk_cap: int | None = None,
+                         out_cap: int | None = None,
+                         ends_cap: int | None = None):
+    """Packed-lane encode -> (bodies (L, out_cap) uint8, ends (L,
+    ends_cap) int32, nseg (L,) int32, ok (L,) bool); see
+    _encode_lanes_impl.  A lane flagged not ok overflowed a cap and must
+    be encoded again with larger ones.  The caps round as the JAX
+    package's: chunk_cap defaults to a bound safe for any input, out_cap
+    to 5 bytes a slot."""
+    return _encode_lanes_impl(packed, flags, *lane_caps(
+        packed.shape[1], chunk_cap, out_cap, ends_cap))
+
+
+def lane_caps(np_: int, chunk_cap: int | None = None,
+              out_cap: int | None = None, ends_cap: int | None = None):
+    """encode_lanes_checked's (chunk_cap, out_cap, ends_cap) for lanes of
+    np_ slots, defaulted and rounded as the JAX package's."""
+    if chunk_cap is None:
+        chunk_cap = np_ + CBLK + 256
+    if out_cap is None:
+        out_cap = 5 * np_ + 32
+    if ends_cap is None:
+        ends_cap = CBLK + 256
+    return (_round_up(max(chunk_cap, CBLK + 256), 2048),
+            _round_up(out_cap, EMIT_WIN),
+            _round_up(max(ends_cap, CBLK + 256), 128))

@@ -1,11 +1,10 @@
 """ctypes binding of the native CPU reference codec (native/qoi_ref.cpp).
 
-The port's bit-exact reference and its host-side split planner.  On first
-use the source is compiled with g++ into
+The port's bit-exact reference, its host-side split planner and the
+state machine of the byte-granular streaming codec (``stream.py``).  On
+first use the source is compiled with g++ into
 ``build/qoipp_tpu_torch/libqoiref.so`` at the root of the checkout
-(rebuilt when the source is newer) and loaded with ctypes.  Only the
-entry points the port uses are bound: encode, decode, pack_files and
-split_points.
+(rebuilt when the source is newer) and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .common import Channels, Desc
+from .common import Channels, Colorspace, Desc
 
 _ROOT = Path(__file__).resolve().parents[1]
 SRC = _ROOT / "native" / "qoi_ref.cpp"
@@ -33,6 +32,8 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _U64, _U32, _U8, _D = (ctypes.c_uint64, ctypes.c_uint32, ctypes.c_uint8,
                        ctypes.c_double)
+_I, _I64, _P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+_u32p, _u8out = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8)
 _SIGNATURES = {  # name -> (restype, argtypes)
     "qoiref_encode": (_U64, [_u8p, _U32, _U32, _U8, _U8, _u8p, _U64,
                              ctypes.POINTER(ctypes.c_int)]),
@@ -41,6 +42,22 @@ _SIGNATURES = {  # name -> (restype, argtypes)
                                  _u8p, _U64, _u64p]),
     "qoiref_split_points": (_U64, [_u8p, _U64, _U64, _U64, _D, _D, _U64,
                                    ctypes.c_int, _u64p, _u64p, _u64p, _D]),
+    "qoiref_read_header": (_I, [_u8p, _U64, _u32p, _u32p, _u8out, _u8out]),
+    "qoiref_flip_vertical": (None, [_u8p, _U32, _U32, _U8]),
+    # the streaming codec's state blob (StreamEncoder, StreamDecoder)
+    "qoiref_stream_state_size": (_U64, []),
+    "qoiref_stream_reset": (None, [_P]),
+    "qoiref_enc_initialize": (_I64, [_P, _u8p, _U64, _U32, _U32, _U8, _U8]),
+    "qoiref_enc_encode": (_I, [_P, _u8p, _U64, _u8p, _U64, _u64p, _u64p]),
+    "qoiref_enc_finalize": (_I64, [_P, _u8p, _U64]),
+    "qoiref_dec_initialize": (_I, [_P, _u8p, _U64, _U8, _u32p, _u32p, _u8out,
+                                   _u8out]),
+    "qoiref_dec_decode": (_I, [_P, _u8p, _U64, _u8p, _U64, _u64p, _u64p]),
+    "qoiref_dec_drain_run": (_I64, [_P, _u8p, _U64]),
+    "qoiref_dec_run_count": (_U32, [_P]),
+    "qoiref_stream_channels": (_U8, [_P]),
+    "qoiref_dec_target": (_U8, [_P]),
+    "qoiref_stream_is_initialized": (_I, [_P]),
 }
 
 
@@ -113,6 +130,65 @@ def decode(data, desc: Desc, dst_channels: Channels) -> np.ndarray:
     lib.qoiref_decode(_ptr(arr), arr.size, desc.width, desc.height,
                       int(desc.channels), int(dst_channels), _ptr(out))
     return out
+
+
+def read_header(data) -> Optional[Desc]:
+    """The native header parser: the Desc, or None where the header is
+    invalid."""
+    lib = _load()
+    arr = _np_u8(data)
+    w, h = ctypes.c_uint32(0), ctypes.c_uint32(0)
+    ch, cs = ctypes.c_uint8(0), ctypes.c_uint8(0)
+    rc = lib.qoiref_read_header(_ptr(arr), arr.size, ctypes.byref(w),
+                                ctypes.byref(h), ctypes.byref(ch),
+                                ctypes.byref(cs))
+    if rc != 0:
+        return None
+    return Desc(w.value, h.value, Channels(ch.value), Colorspace(cs.value))
+
+
+def flip_vertical(data: np.ndarray, desc: Desc) -> np.ndarray:
+    """A copy of raw pixels with the rows in reverse order."""
+    lib = _load()
+    arr = np.ascontiguousarray(data, dtype=np.uint8).copy()
+    lib.qoiref_flip_vertical(_ptr(arr), desc.width, desc.height,
+                             int(desc.channels))
+    return arr
+
+
+class NativeStreamState:
+    """Owns one native stream state blob, the whole carry of the
+    byte-granular streaming codec; stream.StreamEncoder and StreamDecoder
+    drive it."""
+
+    def __init__(self):
+        self._lib = _load()
+        size = self._lib.qoiref_stream_state_size()
+        self._blob = ctypes.create_string_buffer(int(size))
+        self._lib.qoiref_stream_reset(self._blob)
+
+    @property
+    def lib(self):
+        return self._lib
+
+    @property
+    def handle(self):
+        return self._blob
+
+    def reset(self):
+        self._lib.qoiref_stream_reset(self._blob)
+
+    def is_initialized(self) -> bool:
+        return bool(self._lib.qoiref_stream_is_initialized(self._blob))
+
+    def run_count(self) -> int:
+        return int(self._lib.qoiref_dec_run_count(self._blob))
+
+    def channels(self) -> int:
+        return int(self._lib.qoiref_stream_channels(self._blob))
+
+    def target(self) -> int:
+        return int(self._lib.qoiref_dec_target(self._blob))
 
 
 def split_points(body, n_px: int, n_segments: int, byte_w: float = 1.0,

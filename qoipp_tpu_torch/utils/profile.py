@@ -25,8 +25,10 @@ beside K2 on its script's 128 x 286,720 rows, and E7 at each lanes beside
 K4 on its script's 8 x 2^17 rows and at 256 lanes on the same script's
 rows at fill 0.999 (a trailing run of ~130 equal offs, not ~32,770), base
 rows computed outside the call;
-and the profile_r2 probes at their own sizes, E8 at 4,096 and 65,536
-steps and E9 at 2,048 blocks.
+the profile_r2 probes at their own sizes, E8 at 4,096 and 65,536
+steps and E9 at 2,048 blocks; and the serving path on the committed real
+corpus x 8 (ServingCodec decode and encode, from the host and
+pre-staged; PackedDecoder and PackedEncoder alone).
 """
 
 from __future__ import annotations
@@ -173,7 +175,49 @@ def _paths(dev):
         paths.append((f"stream encode {label} {1 << 18} px L={lanes}",
                       lambda n=lanes, r=raw, d=d: stream_encode(
                           r, d, 1 << 18, n, device=dev)))
-    return paths + _window_paths(dev)
+    return paths + _serving_paths(dev) + _window_paths(dev)
+
+
+def _serving_paths(dev):
+    """(label, fn) of the serving path on the committed real corpus x 8
+    (128 requests), as chip_smoke drives it: ServingCodec's decode and
+    encode, each from the host's streams or raw pixels (planning and
+    uploads included) and pre-staged, and PackedDecoder and PackedEncoder
+    alone (lanes of 8 MB and 2^21 pixels)."""
+    from pathlib import Path
+
+    from .. import oracle
+    from ..common import read_header
+    from ..models.packed import PackedDecoder, PackedEncoder
+    from ..models.serving import ServingCodec
+
+    corpus = (Path(__file__).resolve().parents[2] / "tests" / "resources"
+              / "local_corpus")
+    blobs = [np.fromfile(p, np.uint8)
+             for p in sorted(corpus.glob("*.qoi"))] * 8
+    descs = [read_header(b).value() for b in blobs]
+    raws = [oracle.decode(b, d, d.channels) for b, d in zip(blobs, descs)]
+    codec = ServingCodec(device=dev)
+    dec = PackedDecoder(lane_bytes=8 << 20, device=dev)
+    enc = PackedEncoder(lane_px=1 << 21, device=dev)
+    n = len(blobs)
+    staged = codec.decode_stage(blobs)
+    estaged = codec.encode_stage(raws, descs)
+    pstaged = enc.stage_to_device(raws, descs)
+    return [
+        (f"serving decode_dispatch {n} requests",
+         lambda: codec.decode_dispatch(blobs)),
+        (f"serving decode_dispatch_staged {n} requests",
+         lambda: codec.decode_dispatch_staged(staged)),
+        (f"serving encode_dispatch {n} requests",
+         lambda: codec.encode_dispatch(raws, descs)),
+        (f"serving encode_dispatch_staged {n} requests",
+         lambda: codec.encode_dispatch_staged(estaged)),
+        (f"packed PackedDecoder.decode_to_device {n} streams",
+         lambda: dec.decode_to_device(blobs)),
+        (f"packed PackedEncoder.dispatch_staged {n} streams",
+         lambda: enc.dispatch_staged(pstaged)),
+    ]
 
 
 def _window_paths(dev):

@@ -14,11 +14,16 @@ both row layouts and one-class, reset, random and palette rows; K3 and K6
 on their edge cases (selfcheck.COMPACT_CASES, LOGFILL_CASES), K3 twice in
 a row, without a torch scan and refusing short status words; and the
 latency probe behind the replay chain bound against its plain loop.
+ServingCodec over the committed real corpus, PackedDecoder and
+PackedEncoder on lanes of several streams, the api's torch backend and
+one request through the bucketed and serving codecs, against the oracle.
 Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q"""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -450,6 +455,117 @@ def test_stream_on_card_matches_oracle(cuda, channels, lanes):
     after = kernels.launch_counts()
     for name in ("replay_summary", "place_fill"):
         assert after[name] > mid[name]
+
+
+CORPUS_DIR = Path(__file__).resolve().parent / "resources" / "local_corpus"
+
+
+def _real_corpus():
+    """The committed real corpus: (names, streams, descs, raw pixels)."""
+    from qoipp_tpu_torch.common import read_header
+
+    paths = sorted(CORPUS_DIR.glob("*.qoi"))
+    blobs = [np.fromfile(p, np.uint8) for p in paths]
+    descs = [read_header(b).value() for b in blobs]
+    raws = [oracle.decode(b, d, d.channels) for b, d in zip(blobs, descs)]
+    return [p.stem for p in paths], blobs, descs, raws
+
+
+def test_serving_on_card_matches_oracle(cuda):
+    """ServingCodec over the real corpus: packed tiers, the split route
+    (photo_china_1080p) and the bucketed encode route, every stream equal
+    to the oracle's pixels and bytes, the overlapped dispatch and a
+    resident corpus too."""
+    from qoipp_tpu_torch.models.serving import ServingCodec
+
+    names, blobs, descs, raws = _real_corpus()
+    codec = ServingCodec(device=cuda)
+    before = kernels.launch_counts()
+    n, packed_parts, split_parts = codec.decode_dispatch(blobs)
+    assert [names[i] for grp, _ in split_parts for i in grp] == [
+        "photo_china_1080p"]
+    for got in (codec.decode_finish((n, packed_parts, split_parts)),
+                codec.decode_finish(codec.decode_dispatch_overlapped(blobs)),
+                codec.make_resident(blobs).decode()):
+        for name, g, raw in zip(names, got, raws):
+            assert np.array_equal(g, raw), name
+    for name, s, raw, d in zip(names, codec.encode(raws, descs), raws, descs):
+        assert np.array_equal(s, oracle.encode(raw, d)[0]), name
+    after = kernels.launch_counts()
+    for kernel in ("replay", "place_fill", "replay_summary", "compact",
+                   "emit"):
+        assert after[kernel] > before[kernel], kernel
+
+
+def test_packed_lanes_on_card_match_oracle(cuda):
+    """PackedDecoder and PackedEncoder on lanes that hold several streams
+    each (40 tiny streams and the real corpus' icons), equal to the
+    oracle; and one stream alone."""
+    from qoipp_tpu_torch.models.packed import PackedDecoder, PackedEncoder
+
+    rng = np.random.default_rng(3)
+    names, blobs, descs, raws = _real_corpus()
+    icons = [i for i, n in enumerate(names) if n.startswith("icon")]
+    cases = [(raws[i], descs[i]) for i in icons]
+    for k in range(40):
+        d = Desc(3 + k % 5, 2 + k % 3, Channels.RGBA if k % 2 else
+                 Channels.RGB)
+        cases.append((rng.integers(0, 256, d.width * d.height *
+                                   int(d.channels), np.uint8), d))
+    streams = [oracle.encode(r, d)[0] for r, d in cases]
+    dec = PackedDecoder(device=cuda)
+    where = dec.plan_and_pack(streams)[3]
+    assert max(sum(1 for w in where if w[0] == lane)
+               for lane, _ in where) > 1  # lanes of several streams
+    for got, (raw, _) in zip(dec.decode(streams), cases):
+        assert np.array_equal(got, raw)
+    enc = PackedEncoder(device=cuda)
+    assert max(k for _, k in enc.plan_and_pack(
+        [r for r, _ in cases], [d for _, d in cases])[2]) > 0
+    for got, want in zip(enc.encode([r for r, _ in cases],
+                                    [d for _, d in cases]), streams):
+        assert np.array_equal(got, want)
+    assert np.array_equal(enc.encode([cases[0][0]], [cases[0][1]])[0],
+                          streams[0])
+    assert np.array_equal(dec.decode([streams[0]])[0], cases[0][0])
+
+
+def test_api_device_backend_on_card(cuda):
+    """api's torch backend round trip (K1 and K6 to decode an opaque image,
+    K3 and K4 to encode) equal to the native backend, a truncated stream
+    included."""
+    from qoipp_tpu_torch import api
+
+    for channels in (3, 4):
+        desc, raws, blobs = make_corpus(1, 200, 120, seed=channels,
+                                        channels=channels)
+        before = kernels.launch_counts()
+        enc = api.encode(raws[0], desc, backend="torch").value()
+        assert np.array_equal(enc, blobs[0])
+        for blob in (enc, enc[: enc.size // 2]):
+            got = api.decode(blob, backend="torch").value()
+            want = api.decode(blob, backend="native").value()
+            assert got.desc == want.desc
+            assert np.array_equal(got.data, want.data)
+        after = kernels.launch_counts()
+        for name in ("replay", "compact", "emit") + (
+                ("logfill",) if channels == 3 else ()):
+            assert after[name] > before[name], name
+
+
+def test_single_request_engines_on_card(cuda):
+    """B = 1 on the card: one stream through the bucketed codec (K1 reads a
+    lane-major (qb, 1) view) and one request through the serving codec."""
+    from qoipp_tpu_torch.models.scheduler import BucketedCodec
+    from qoipp_tpu_torch.models.serving import ServingCodec
+
+    desc, raws, blobs = make_corpus(1, 96, 64, seed=5, channels=4)
+    codec = BucketedCodec(desc, min_len=1 << 12, device=cuda)
+    assert np.array_equal(codec.decode(blobs)[0].reshape(-1), raws[0])
+    assert np.array_equal(codec.encode(raws[0][None])[0], blobs[0])
+    serving = ServingCodec(split_min_bytes=1 << 12, device=cuda)
+    assert np.array_equal(serving.decode(blobs)[0], raws[0])
+    assert np.array_equal(serving.encode(raws, [desc])[0], blobs[0])
 
 
 @pytest.mark.parametrize("module,name,argv", [

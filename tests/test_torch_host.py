@@ -99,7 +99,18 @@ def test_package_exports_resolve():
         device_stream.DeviceStreamEncoder
     assert qoipp_tpu_torch.read_header is common.read_header
     assert qoipp_tpu_torch.Error is common.Error
-    for name in ("api", "stream", "ServingCodec", "SplitDecoder"):
+    from qoipp_tpu_torch import api, stream
+    from qoipp_tpu_torch.models import packed, scheduler, serving
+
+    assert qoipp_tpu_torch.decode is api.decode
+    assert qoipp_tpu_torch.StreamDecoder is stream.StreamDecoder
+    assert qoipp_tpu_torch.PackedDecoder is packed.PackedDecoder
+    assert qoipp_tpu_torch.PackedEncoder is packed.PackedEncoder
+    assert qoipp_tpu_torch.BucketedCodec is scheduler.BucketedCodec
+    assert qoipp_tpu_torch.ServingCodec is serving.ServingCodec
+    assert qoipp_tpu_torch.ResidentCorpus is serving.ResidentCorpus
+    # modules and the engines the JAX package's root does not export
+    for name in ("api", "stream", "SplitDecoder"):
         assert name not in qoipp_tpu_torch.__all__
 
 

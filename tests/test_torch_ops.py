@@ -227,11 +227,16 @@ def test_port_imports_without_jax():
         "          'expt_place_fixed', 'expt_place', 'expt_emit_wide',\n"
         "          'profile_r2'):\n"
         "    assert 'qoipp_tpu_torch.benchmarks.' + e in names, names\n"
+        "for m in ('api', 'stream', 'models.packed', 'models.scheduler',\n"
+        "          'models.serving', 'utils.transfer'):\n"
+        "    assert 'qoipp_tpu_torch.' + m in names, names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "from qoipp_tpu_torch.models.pipeline import BatchPipeline\n"
         "assert qoipp_tpu_torch.BatchPipeline is BatchPipeline\n"
+        "from qoipp_tpu_torch.models.serving import ServingCodec\n"
+        "assert qoipp_tpu_torch.ServingCodec is ServingCodec\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
