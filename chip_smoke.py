@@ -54,8 +54,24 @@
      PackedDecoder and PackedEncoder alone on the same 128 requests, and
      api's torch backend (decode and encode) on photo_china_1080p and an
      RGBA icon against its native backend;
+   - the parallel layer (qoipp_tpu_torch.parallel) as jobs of local ranks
+     that share the one card (parallel.launch.run_ranks; the kernels built
+     in phase 1, the exchange through gloo staged in host memory): dp at 2
+     ranks on a (2, 1) mesh, the batch RGB corpus 8 images a rank decoded
+     by make_dp_decode (with the checksum) and the pixels re-encoded by
+     make_dp_encode, each image against the oracle; sp at 4 ranks on a
+     (1, 4) mesh, make_sp_decode of the 4096x4096 sparse stream and of the
+     committed photo_china_1080p at 24 tiles a rank (96 tiles, as
+     SplitDecoder(96)), the blocks gathered, expanded and held to the
+     oracle's pixels, each decode's fixpoint rounds logged, and
+     make_sp_encode of the 4096x4096 raw image (4,194,304 px a shard) and
+     of the 1310x1191 RGBA screenshot (its last shard 389,970 of 390,080
+     px), the bodies joined against the oracle's stream; and the dp job
+     at world 1 through NCCL (two ranks on one card are refused by NCCL);
 4. requires each kernel of each path to have launched in that path's run
-   (counts set to 0 just before each run and read just after);
+   (counts set to 0 just before each run and read just after; a parallel
+   path's counts are its ranks', each taken over the path's run alone and
+   summed);
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
    inputs, E2-E6 also in device time beside K2's and E7 beside K4's, with
@@ -94,7 +110,14 @@
    times every path (1 cold, 3 warmup, 5 timed runs, CUDA
    events), the serving path as decode to completion, pre-staged,
    resident, overlapped and end to end with the fetch, encode to
-   completion, pre-staged and end to end, and the packed lanes alone.
+   completion, pre-staged and end to end, and the packed lanes alone; in
+   the parallel jobs' ranks, holds K5 on the first and the last 4,096
+   rows of rank 0's tiles from the last fixpoint round's in-state (the
+   tail from the kernel's own carry) and E1, K3 and K4 on every sp-encode
+   shard with its exchanged carries, each on the arguments the path gave
+   it (the rows' "held_at"), and times every parallel path by the host
+   clock between barriers (1 first call, 3 warmup, 5 timed), in ms and
+   MPix/s, logged as ranks sharing one card.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -107,15 +130,19 @@ import sys
 for _name in ("jax", "qoipp_tpu", "bench", "benchmarks"):
     sys.modules[_name] = None  # the port runs where these are absent
 
+import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from qoipp_tpu_torch import api, kernels, oracle  # noqa: E402
 from qoipp_tpu_torch.benchmarks import (  # noqa: E402
@@ -149,6 +176,9 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     replay_kernel,
 )
 from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
+from qoipp_tpu_torch.parallel import dryrun, launch  # noqa: E402
+from qoipp_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
+from qoipp_tpu_torch.parallel import sharded  # noqa: E402
 from qoipp_tpu_torch.utils import profile  # noqa: E402
 from qoipp_tpu_torch.utils.corpus import make_corpus, make_image  # noqa: E402
 
@@ -258,6 +288,17 @@ SERVING_REPLICATE = 8  # benchmarks/serving_bench.py's default --replicate
 PACKED_LANE_BYTES = 8 << 20
 PACKED_LANE_PX = 1 << 21
 API_IMAGES = ("photo_china_1080p", "icon_image")  # RGB: K6; RGBA
+# the parallel phase: jobs of local ranks that share the one card (gloo,
+# the exchange staged through host memory; NCCL only at world 1: two ranks
+# on one card are refused as duplicate GPUs)
+PARALLEL = dict(
+    dp_world=2,  # mesh (2, 1): 8 of the batch RGB corpus's 16 images a rank
+    sp_world=4,  # mesh (1, 4)
+    sp_tiles=24,  # tiles a rank: 96 tiles, SplitDecoder(96)'s lanes
+    sp_decode=("sparse", "photo_china_1080p"),
+    sp_encode=("sparse", "screenshot_requests"),  # RGB 4096^2; RGBA uneven
+    timeout=600,  # s a job
+)
 
 
 PTXAS = {}  # kernel entry (mangled name) -> ptxas' "Used ..." report
@@ -1484,7 +1525,7 @@ def _hold_split(held, staged, what):
                                      (in_p, in_s), f"{what}, round {rounds}")
         _hold(held, "replay_summary", err,
               f"{what}, round {rounds} ({meta_t.shape[0]} x {lanes} rows)")
-        want_p, want_s, _ = split.propagate(heads, *full[1:])
+        want_p, want_s, _ = dec_ops.propagate(heads, *full[1:])
         rounds += 1
         if bool((want_p == in_p).all() & (want_s == in_s).all()) or \
                 rounds >= max_chain + 2:
@@ -1769,6 +1810,391 @@ def phase5_packed_times(s, card):
             f"(calls {', '.join(f'{m:.2f}' for m in ms)}) on {card}")
 
 
+# --------------------------------------------------------------------------
+# The parallel phase: jobs of local ranks that share the card
+# --------------------------------------------------------------------------
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _counted(dev, fn):
+    """fn's result and the launches it made: every count at 0 just before
+    the call, read just after it."""
+    _sync(dev)
+    kernels.reset_launch_counts()
+    out = fn()
+    _sync(dev)
+    return out, {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def _rank_ms(fn, dev, warmup=3, runs=5):
+    """(ms a call, the first call's ms) of fn run on every rank at once, by
+    the host clock between barriers: the slowest rank sets it."""
+    def span(n):
+        _sync(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        _sync(dev)
+        dist.barrier()
+        return (time.perf_counter() - t0) * 1e3 / n
+    first = span(1)
+    for _ in range(warmup):
+        fn()
+    return span(runs), first
+
+
+@contextlib.contextmanager
+def _recorded(*targets):
+    """Record (name, args, kwargs, result) of every call of module.<name>,
+    for each (module, names) of ``targets``, made inside the block, in
+    order.  The result is a copy: the path may write into what it got
+    (the batch encoder writes the header into K4's output)."""
+    calls, saved = [], []
+
+    def copy(x):
+        return (x.clone() if isinstance(x, torch.Tensor) else
+                type(x)(map(copy, x)) if isinstance(x, (tuple, list)) else x)
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append((name, args, kwargs, copy(out)))
+            return out
+        return call
+
+    for module, names in targets:
+        for n in names:
+            saved.append((module, n, getattr(module, n)))
+            setattr(module, n, recorder(n, saved[-1][2]))
+    try:
+        yield calls
+    finally:
+        for module, n, fn in saved:
+            setattr(module, n, fn)
+
+
+# the wrappers the parallel paths call, by the name their caller looks up:
+# the kernel's name and its plain version (replay_batch_carry: K1, held by
+# _replay_check)
+_RECORDED = {
+    "replay_batch_carry": ("replay", None),
+    "place_fill": ("place_fill", place_kernel.place_fill_reference),
+    "encode_fields_planes": ("fields",
+                             fields_kernel.encode_fields_planes_reference),
+    "compact_rows": ("compact", compact_kernel.compact_rows_reference),
+    "emit_bytes": ("emit", emit_kernel.emit_bytes_reference)}
+# where dp decode and encode (BatchPipeline) and sp encode
+# (ops/device_stream._encode_rows) look them up
+_DP_CALLS = ((replay_kernel, ("replay_batch_carry",)),
+             (place_kernel, ("place_fill",)),
+             (enc_ops, ("compact_rows", "emit_bytes")))
+_SP_ENCODE_CALLS = ((device_stream, ("encode_fields_planes", "compact_rows",
+                                     "emit_bytes")),)
+
+
+def _shapes(args, kwargs=None):
+    """A call's arguments as tensor shapes and numbers: ((1x8, 1x8), 1x8,
+    cap=128)."""
+    def one(a):
+        return ("x".join(map(str, a.shape)) if isinstance(a, torch.Tensor)
+                else _shapes(a) if isinstance(a, (tuple, list)) else str(a))
+    return "(" + ", ".join([one(a) for a in args] + [
+        f"{k}={one(v)}" for k, v in (kwargs or {}).items()]) + ")"
+
+
+def _hold_recorded(held, calls, what):
+    """Each recorded kernel call's result on the path against its plain
+    version on the same arguments (K1 as _replay_check holds it: its first
+    and last rows, the last from the kernel's own carry)."""
+    for name, args, kwargs, out in calls:
+        kernel, plain = _RECORDED[name]
+        at = f"{what}: {name}{_shapes(args, kwargs)}"
+        if kernel == "replay":
+            err, _, _ = _replay_check(kernel, args[0], args[1], args[2:], at)
+            _hold(held, kernel, err, f"{at}; first and last "
+                  f"{PLAIN_REPLAY_ROWS} rows")
+            continue
+        same = _same_whole
+        if kernel == "compact":
+            same = _compact_same(kwargs["cap"] if "cap" in kwargs
+                                 else args[2])
+        _hold(held, kernel, same(out, plain(*args, **kwargs)), at)
+
+
+def parallel_dp_rank(cfg, path):
+    """One rank of the dp job: its block of the batch RGB corpus (saved at
+    path) through make_dp_decode, the decoded pixels re-encoded through
+    make_dp_encode, each image against the oracle; K1, K2, K3 and K4 held
+    against their plain versions on the arguments the path gave them;
+    then both timed."""
+    dev = launch.rank_device(cfg["device_type"])
+    rank = dist.get_rank()
+    m = mesh_mod.make_mesh(device_type=cfg["device_type"])
+    inp = np.load(path)
+    desc = Desc(cfg["w"], cfg["h"], Channels.RGB)
+    max_len = int(inp["sizes"].max())
+    pipe = BatchPipeline(desc, max_stream_len=max_len,
+                         max_encode_len=max_len + 4096, device=dev)
+    streams, sizes = (mesh_mod.local_rows(torch.from_numpy(inp[k]).to(dev), m)
+                      for k in ("streams", "sizes"))
+    first = mesh_mod.axis_index(m, "data") * streams.shape[0]
+    blobs = [inp["streams"][first + i, : inp["sizes"][first + i]]
+             for i in range(streams.shape[0])]
+    dec = sharded.make_dp_decode(pipe, m)
+    enc = sharded.make_dp_encode(pipe, m)
+
+    def pad(packed):
+        return torch.nn.functional.pad(packed[:, : pipe.n_px],
+                                       (0, pipe.nb - pipe.n_px))
+
+    def both():
+        packed, checksum = dec(streams, sizes)
+        return (packed, checksum) + enc(pad(packed))
+
+    with _recorded(*_DP_CALLS) as calls:
+        (packed, checksum, out, lengths), launches = _counted(dev, both)
+    for i, blob in enumerate(blobs):
+        want = pixels_to_packed(torch.from_numpy(oracle.decode(
+            blob, desc, desc.channels)).to(dev), 3)
+        expect(bool((packed[i, : pipe.n_px] == want).all()),
+               f"rank {rank}: dp decode of image {first + i} differs from "
+               "the oracle")
+        expect(int(lengths[i]) == blob.size and np.array_equal(
+            out[i, : blob.size].cpu().numpy(), blob),
+            f"rank {rank}: dp re-encode of image {first + i} differs from "
+            "the oracle's stream")
+    local = (packed.to(torch.int64) & 0xFFFFFFFF).sum() % (1 << 32)
+    sums = mesh_mod.all_gather(m, local.reshape(1), "data")
+    expect(int(checksum) == int(sums.sum()) % (1 << 32),
+           f"rank {rank}: the dp checksum differs from the ranks' sums")
+    held = {}
+    _hold_recorded(held, calls, f"dp decode and re-encode, rank {rank} of "
+                   f"{dist.get_world_size()} ({len(blobs)} images)")
+    enc_in = pad(packed)
+    del out, calls
+    mpix = len(blobs) * dist.get_world_size() * pipe.n_px / 1e6
+    paths = [dict(label="dp decode and re-encode", launches=launches,
+                  needs=("replay", "place_fill", "compact", "emit"))]
+    for label, fn in (("dp decode", lambda: dec(streams, sizes)),
+                      ("dp encode", lambda: enc(enc_in))):
+        ms, first_ms = _rank_ms(fn, dev)
+        paths.append(dict(label=label, ms=ms, first_ms=first_ms, mpix=mpix))
+    return dict(rank=rank, backend=dist.get_backend(), images=len(blobs),
+                checksum=int(checksum), paths=paths, held=held)
+
+
+def _sp_image(cfg, name):
+    """(desc, raw, stream) of an sp image: "sparse" is the split path's
+    make_image at side x side and its oracle stream, any other name a
+    stream of the committed corpus and its oracle pixels."""
+    if name == "sparse":
+        desc = Desc(cfg["side"], cfg["side"], Channels.RGB)
+        raw = make_image(cfg["side"], cfg["side"], seed=3)
+        return desc, raw, oracle.encode(raw, desc)[0]
+    blob = np.fromfile(Path(cfg["corpus"]) / f"{name}.qoi", np.uint8)
+    desc = read_header(blob).value()
+    return desc, oracle.decode(blob, desc, desc.channels), blob
+
+
+def parallel_sp_rank(cfg):
+    """One rank of the sp job: sp decode of each cfg["sp_decode"] stream
+    at cfg["tiles"] tiles a rank and sp encode of each cfg["sp_encode"]
+    image, every result gathered to rank 0 and held to the oracle; K5 (on
+    rank 0) and E1, K3 and K4 (on every rank's shard) held against their
+    plain versions on the arguments the path gave them; every path
+    timed."""
+    dev = launch.rank_device(cfg["device_type"])
+    rank, world = dist.get_rank(), dist.get_world_size()
+    m = mesh_mod.make_mesh((1, world), device_type=cfg["device_type"])
+    tiles = cfg["tiles"]
+    held, paths = {}, []
+    for name in cfg["sp_decode"]:
+        desc, raw, blob = _sp_image(cfg, name)
+        n_px = desc.width * desc.height
+        meta, val, info = dryrun.sp_rows(blob, n_px, world * tiles, dev)
+        qb = meta.shape[0]
+        fn = sharded.make_sp_decode(m, qb, tiles, with_rounds=True,
+                                    device=dev)
+        rows = (mesh_mod.local_rows(meta, m, "seq"),
+                mesh_mod.local_rows(val, m, "seq"))
+        with _recorded((replay_kernel, ("replay_batch_summary",))) as calls:
+            (emits, prevs, rounds), launches = _counted(dev,
+                                                        lambda: fn(*rows))
+        # the gather this check asks for: every block, expanded on rank 0
+        emits, prevs = (mesh_mod.all_gather(m, x, "seq").reshape(-1)
+                        for x in (emits, prevs))
+        what = (f"sp decode {name} {desc.width}x{desc.height}, rank {rank} "
+                f"of {world}: {qb // world} rows in {tiles} tiles")
+        k5_args = calls[-1][1]  # the last round's (meta_t, val_t, in_p, in_s)
+        if rank == 0:
+            got = dec_ops.expand_pixels(
+                emits, prevs, info["real"], info["produced"],
+                info["pix_before"], dec_ops._bucket(n_px, 128))[:n_px]
+            expect(bool((got == pixels_to_packed(torch.from_numpy(raw).to(
+                dev), int(desc.channels))).all()),
+                f"sp decode of {name} differs from the oracle")
+            # K5 on this rank's tiles from the last round's in-state
+            _hold(held, "replay_summary", _replay_check(
+                "replay_summary", *k5_args[:2], k5_args[2:], what)[0],
+                f"{what}, round {rounds}")
+        del emits, prevs, calls
+        ms, first_ms = _rank_ms(lambda: fn(*rows), dev)
+        # a round's parts: K5 on every rank's tiles at once, and one
+        # round's exchange (the 65-word all_gather and the flag's MIN)
+        k5_ms, _ = _rank_ms(
+            lambda: replay_kernel.replay_batch_summary(*k5_args), dev)
+        state = torch.zeros(65, dtype=torch.int32, device=dev)
+        flag = torch.ones(1, dtype=torch.int32, device=dev)
+        exchange_ms, _ = _rank_ms(lambda: (
+            mesh_mod.all_gather(m, state, "seq"),
+            mesh_mod.all_reduce(m, flag, "seq", dist.ReduceOp.MIN)), dev)
+        paths.append(dict(label=f"sp decode {name}", launches=launches,
+                          needs=("replay_summary",), rounds=rounds, qb=qb,
+                          tiles=world * tiles, ms=ms, first_ms=first_ms,
+                          mpix=n_px / 1e6, parts=dict(
+                              round=ms / rounds, k5=k5_ms,
+                              exchange=exchange_ms)))
+    for name in cfg["sp_encode"]:
+        desc, raw, blob = _sp_image(cfg, name)
+        ch, n_px = int(desc.channels), desc.width * desc.height
+        shard, n_local, n_last = sharded.sp_shard(pixels_to_packed(
+            torch.from_numpy(raw).to(dev), ch), m)
+        fn = sharded.make_sp_encode(m, n_local, ch, device=dev)
+        with _recorded(*_SP_ENCODE_CALLS) as calls:
+            (body, length), launches = _counted(
+                dev, lambda: fn(shard, n_last))
+        expect(sharded.gather_stream(m, body, length) == blob[14:].tobytes(),
+               f"rank {rank}: sp encode of {name} differs from the oracle's "
+               "stream")
+        v = n_last if rank == world - 1 else n_local
+        _hold_recorded(held, calls, f"sp encode {name} {desc.width}x"
+                       f"{desc.height}x{ch}, shard {rank} of {world} ({v} "
+                       f"of {n_local} px)")
+        kernel_calls = [(getattr(device_stream, c), args, kwargs)
+                        for c, args, kwargs, _ in calls]
+        del calls
+        ms, first_ms = _rank_ms(lambda: fn(shard, n_last), dev)
+        # the part of it that is E1, K3 and K4, on every shard at once
+        kernels_ms, _ = _rank_ms(
+            lambda: [call(*args, **kwargs)
+                     for call, args, kwargs in kernel_calls], dev)
+        paths.append(dict(label=f"sp encode {name}", launches=launches,
+                          needs=("fields", "compact", "emit"), n_local=n_local,
+                          n_last=n_last, ms=ms, first_ms=first_ms,
+                          mpix=n_px / 1e6, parts=dict(kernels=kernels_ms)))
+    return dict(rank=rank, backend=dist.get_backend(), paths=paths,
+                held=held)
+
+
+def parallel_config(dev):
+    """What the parallel jobs' ranks are given (they import this module
+    afresh, so nothing set on it in this process reaches them)."""
+    return dict(device_type=dev.type, w=W, h=H, side=SPLIT_SIDE,
+                corpus=str(CORPUS_DIR), tiles=PARALLEL["sp_tiles"],
+                sp_decode=PARALLEL["sp_decode"],
+                sp_encode=PARALLEL["sp_encode"])
+
+
+def phase3_parallel(rgb, dev):
+    """The parallel jobs, every rank on the card: dp at dp_world on the
+    batch RGB corpus and sp at sp_world (gloo), and on a card the dp job
+    at world 1 through NCCL.  Returns {job: [each rank's result]}."""
+    cfg = parallel_config(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    path = str(Path(tmp) / "batch_rgb.npz")
+    np.savez(path, streams=rgb["streams"].cpu().numpy(),
+             sizes=rgb["sizes"].cpu().numpy())
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks allocate on the same card
+    jobs = {}
+    try:
+        for job, fn, world, args in (
+                ("dp", parallel_dp_rank, PARALLEL["dp_world"], (cfg, path)),
+                ("sp", parallel_sp_rank, PARALLEL["sp_world"], (cfg,))):
+            t0 = time.perf_counter()
+            jobs[job] = launch.run_ranks(fn, world, "gloo", dev.type,
+                                         PARALLEL["timeout"], args)
+            log(f"phase 3: parallel {job} job: {world} ranks (gloo) in "
+                f"{time.perf_counter() - t0:.1f} s, every result equal to "
+                "the oracle")
+        if dev.type == "cuda":
+            t0 = time.perf_counter()
+            jobs["nccl"] = launch.run_ranks(parallel_dp_rank, 1, "nccl",
+                                            dev.type, PARALLEL["timeout"],
+                                            (cfg, path))
+            log(f"phase 3: parallel dp job at world 1 through NCCL in "
+                f"{time.perf_counter() - t0:.1f} s, every result equal to "
+                "the oracle")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for job, ranks in jobs.items():
+        for p in ranks[0]["paths"]:
+            if "rounds" in p:
+                log(f"phase 3: parallel {job} job, {p['label']}: {p['tiles']} "
+                    f"tiles over {len(ranks)} ranks, qb {p['qb']}, rounds "
+                    f"{p['rounds']}")
+    return jobs
+
+
+def phase4_parallel(jobs, totals):
+    """Each driven path of each job launched its kernels: the ranks' counts
+    (each taken over the path's run alone) summed."""
+    for job, ranks in jobs.items():
+        for k, p in enumerate(ranks[0]["paths"]):
+            if "needs" not in p:
+                continue
+            launches = {}
+            for r in ranks:
+                for name, n in r["paths"][k]["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+            label = (f"the parallel {job} job's {p['label']} "
+                     f"({len(ranks)} ranks, {ranks[0]['backend']})")
+            log(f"phase 4: launches on {label}: {launches}")
+            for name in p["needs"]:
+                expect(launches.get(name, 0) > 0,
+                       f"{label} never launched {name}")
+            for name, n in launches.items():
+                totals[name] = totals.get(name, 0) + n
+
+
+def phase5_parallel(jobs, rows, card):
+    """The ranks' holds into the kernel rows' "held_at", and each parallel
+    path's time."""
+    by_name = {r["name"]: r for r in rows}
+    n_held = {}
+    for ranks in jobs.values():
+        for r in ranks:
+            for name, shapes in r["held"].items():
+                row = by_name[name]
+                row.setdefault("held_at", []).extend(shapes)
+                row["max_abs_err"] = max(row["max_abs_err"], *(
+                    h["max_abs_err"] for h in shapes))
+                n_held[name] = n_held.get(name, 0) + len(shapes)
+    for name in ("replay", "place_fill", "replay_summary", "fields",
+                 "compact", "emit"):
+        expect(n_held.get(name), f"phase 5 held {name} at no parallel shape")
+    log(f"phase 5: held against their plain versions at the parallel "
+        f"paths' shapes: {n_held}")
+    for job, ranks in jobs.items():
+        for p in ranks[0]["paths"]:
+            if "ms" in p:
+                log(f"phase 5: parallel {job} job, {p['label']} ({len(ranks)} "
+                    f"ranks, {ranks[0]['backend']}): {p['ms']:.2f} ms = "
+                    f"{p['mpix'] / p['ms'] * 1e3:.1f} MPix/s (first call "
+                    f"{p['first_ms']:.2f} ms); the ranks share one card, not "
+                    f"a multi-GPU number; on {card}")
+                if "parts" in p:
+                    log(f"phase 5: parallel {job} job, {p['label']}, its "
+                        f"parts (ms, every rank at once, host clock between "
+                        f"barriers): "
+                        f"{ {k: round(v, 4) for k, v in p['parts'].items()} }")
+
+
 def main():
     card = phase0_device()
     dev = torch.device("cuda")
@@ -1819,6 +2245,8 @@ def main():
           ("replay", "place_fill", "compact", "emit"), launches)
     drive("the api torch backend", lambda: phase3_api(serve, dev),
           ("replay", "logfill", "compact", "emit"), launches)
+    par = phase3_parallel(runs[0], dev)
+    phase4_parallel(par, launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
     k5, k2_split = phase5_split_kernels(sparse, launches, card)
@@ -1836,6 +2264,7 @@ def main():
     rows.append(phase5_emit_window(results, launches, dev, card))
     rows.extend(phase5_probes(results, launches, card))
     phase5_serving_kernels(serve, rows, launches, card)
+    phase5_parallel(par, rows, card)
     for run in runs:
         phase5_pipeline_times(run, card)
     for run in split_runs:

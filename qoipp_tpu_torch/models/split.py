@@ -22,7 +22,9 @@ the chunk domain once, outside the fixpoint, where the stream is sparse
 enough to gain; K2 places the pixels.  The host planner is the JAX
 package's, line for line, so both packages make the same plans.  The
 streaming decoder's windows run the same fixpoint as one chain whose head
-re-enters the carried state (``_decode_window_lanes``).
+re-enters the carried state (``_decode_window_lanes``).  ``propagate``
+and ``seam_fixpoint`` live in ``ops/decode``, which the scan engine and
+the sequence-parallel decode share.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from ..ops import boundary
 from ..ops import compact_kernel as ck
 from ..ops import decode as dec_ops
 from ..ops import place_kernel
-from ..ops import replay_kernel as rk
 from ..ops.bitops import START_PIXEL_PACKED
+from ..ops.decode import seam_fixpoint, true_init_row
 from ..utils.transfer import upload
 from .packed import (_bucket_mult, _parse_streams, _round_up,
                      _unpack_pixels_np)
@@ -65,54 +67,15 @@ def _compact_chunks(meta, val, pix_before, keep, n_cap: int, qc: int):
             torch.where(valid, pb_c, n_cap))
 
 
-def _base_state(device):
-    """The decoder's initial state as (65,) int32: prev, then the 64
-    table slots (zero except slot 53, which holds the start pixel)."""
-    prev0, seen0 = rk.initial_state(1, device)
-    return torch.cat([prev0[0], seen0[:, 0]])
-
-
 def initial_guess(lanes: int, device):
     """The round-0 in-state of every lane: the initial state, except that
     empty table slots guess alpha 0xFF (a zero alpha taken from a guessed
     slot could never heal inside an RGB stream, where OP_RGB keeps the
     carried alpha)."""
-    base = _base_state(device)
+    base = true_init_row(device)
     guess = torch.where(base == 0, START_PIXEL_PACKED, base)
     guess = guess[:, None].expand(65, lanes).contiguous()
     return guess[:1].contiguous(), guess[1:].contiguous()
-
-
-def propagate(heads, out_p, out_s, pupd, swr, base=None):
-    """Each lane's implied in-state from the lanes' out-states and
-    summaries, all as the replay kernel gives them: out_p/pupd (1, L),
-    out_s/swr (64, L); heads (L,) bool marks the lanes that start a chain;
-    base (65,) int32 is the state a chain starts from (prev, then the 64
-    table slots), by default the decoder's initial state.
-
-    Component c of lane k's in-state is out[j][c] for the largest j < k in
-    k's chain whose summary bit for c is set, else base[c]: a segmented
-    last-writer search along the lane axis, by cummax.
-    Returns (in_p (1, L), in_s (64, L), fin (65,)), fin being the state
-    after the last lane, by the same rule."""
-    lanes = heads.shape[0]
-    dev = heads.device
-    if base is None:
-        base = _base_state(dev)
-    j = torch.arange(lanes, device=dev)
-    bits = torch.cat([pupd, swr]) != 0  # (65, L)
-    outs = torch.cat([out_p, out_s])
-    upto = torch.cummax(torch.where(bits, j, -1), dim=1).values
-    last = torch.cat([torch.full((65, 1), -1, dtype=upto.dtype, device=dev),
-                      upto[:, :-1]], dim=1)  # writers strictly before k
-    start = torch.cummax(torch.where(heads, j, -1), dim=0).values
-    inner = (last >= 0) & (last >= start[None, :])
-    state = torch.where(inner, torch.gather(outs, 1, last.clamp(min=0)),
-                        base[:, None])
-    fl = upto[:, -1:]
-    fin = torch.where((fl >= 0) & (fl >= start[-1]),
-                      torch.gather(outs, 1, fl.clamp(min=0)), base[:, None])
-    return state[:1], state[1:], fin[:, 0]
 
 
 def lane_fields(regions, chunks_sizes, px_budgets, qb: int):
@@ -142,28 +105,6 @@ def lane_rows(regions, chunks_sizes, px_budgets, qb: int, n_cap: int,
     return meta.T, val.T, pix_before.contiguous()
 
 
-def seam_fixpoint(meta_t, val_t, heads, max_chain: int, base=None):
-    """Replay rounds of K5 until every lane's in-state is implied by its
-    chain, at most max_chain + 2 of them, one host sync each; chains start
-    from base (propagate's).  Returns the emits (width, L) of the round
-    that found the fixpoint, the round count, and the state (65,) after the
-    last lane in that round."""
-    in_p, in_s = initial_guess(meta_t.shape[1], meta_t.device)
-    rounds = 0
-    while True:
-        emits, out_p, out_s, pupd, swr = rk.replay_batch_summary(
-            meta_t, val_t, in_p, in_s)
-        want_p, want_s, fin = propagate(heads, out_p, out_s, pupd, swr, base)
-        rounds += 1
-        # emits came from in_p/in_s: at the fixpoint they are exact
-        if bool((want_p == in_p).all() & (want_s == in_s).all()):
-            break
-        if rounds >= max_chain + 2:
-            break
-        in_p, in_s = want_p, want_s
-    return emits, rounds, fin
-
-
 def _decode_split_lanes(regions, heads, chunks_sizes, px_budgets,
                         max_chain: int, qb: int, n_cap: int, qc: int = 0):
     """regions: (L, qb + 8) uint8, one segment per lane, each opening on a
@@ -174,7 +115,9 @@ def _decode_split_lanes(regions, heads, chunks_sizes, px_budgets,
     Returns ((L, n_cap) int32 packed pixels per lane, rounds)."""
     meta_t, val_t, pix_before = lane_rows(regions, chunks_sizes, px_budgets,
                                           qb, n_cap, qc)
-    emits, rounds, _ = seam_fixpoint(meta_t, val_t, heads, max_chain)
+    emits, rounds, _ = seam_fixpoint(
+        meta_t, val_t, heads, max_chain,
+        initial_guess(meta_t.shape[1], meta_t.device))
     return (place_kernel.place_fill(pix_before, emits.T.contiguous(), n_cap),
             rounds)
 
@@ -213,6 +156,7 @@ def _decode_window_lanes(regions, seg_lens, prev0, seen_col0, max_chain: int,
     heads[0] = True
     emits, rounds, fin = seam_fixpoint(
         meta.T, val.T, heads, max_chain,
+        initial_guess(regions.shape[0], regions.device),
         torch.cat([prev0.reshape(1), seen_col0.reshape(64)]))
     packed = place_kernel.place_fill(pix_before.contiguous(),
                                      emits.T.contiguous(), n_cap)

@@ -256,29 +256,58 @@ def _encode_window(raw_u8, n_px: int, prev_c, run_c, seen_c, channels: int,
 def lane_carries(packed, n_px: int, prev_c, run_c, seen_c):
     """The state entering each of L sub-windows (rows of packed (L, n)
     int32) of a window of n_px pixels, in closed form: (v (L,) valid
-    pixels, prev_in (L,), run_in (L,), seen_in (64, L)), int32.
+    pixels, prev_in (L,), run_in (L,), seen_in (64, L)), int32.  prev is
+    the previous lane's last slot (lanes with pixels follow only full
+    lanes); run and table fold the lanes' summaries (lane_summaries,
+    fold_summaries)."""
+    lanes, n = packed.shape
+    lane = torch.arange(lanes, dtype=torch.int32, device=packed.device)
+    v = (n_px - lane * n).clamp(0, n).to(torch.int32)
+    prev_in = torch.cat([prev_c.reshape(1), packed[:-1, -1]])
+    run_in, seen_in = fold_summaries(lane_summaries(packed, v, prev_in),
+                                     run_c, seen_c)
+    return v, prev_in, run_in, seen_in
 
-    - prev: the previous lane's last slot (lanes with pixels follow only
-      full lanes);
+
+def lane_summaries(packed, v, prev_in):
+    """What the lanes after each row of pixel words need of it, given the
+    pixel before it: packed (L, n), v (L,) valid pixels, prev_in (L,)
+    int32.  Returns (L, 131) int32: v; the last pixel that
+    differs from the one before it, + 1 (0: every pixel repeats it); the
+    trailing streak of repeats; for each of the 64 table slots the last
+    differing pixel of that hash, + 1 (0: none); then those pixels'
+    words."""
+    n = packed.shape[1]
+    idx = torch.arange(n, dtype=torch.int32, device=packed.device)[None, :]
+    prev_rows = torch.cat([prev_in[:, None], packed[:, :-1]], dim=1)
+    pos1 = torch.where((idx < v[:, None]) & (packed != prev_rows), idx + 1, 0)
+    brk = pos1.amax(dim=1)
+    tail = (v - brk).clamp(min=0)
+    jb = torch.zeros((packed.shape[0], 64), dtype=torch.int32,
+                     device=packed.device)
+    jb = jb.scatter_reduce(1, hash6(packed).to(torch.int64), pos1, "amax")
+    vals = torch.gather(packed, 1, (jb - 1).clamp(min=0).to(torch.int64))
+    return torch.cat([v[:, None], brk[:, None], tail[:, None], jb, vals],
+                     dim=1)
+
+
+def fold_summaries(summ, run_c, seen_c):
+    """The run counter (L,) and the table (64, L) int32 entering each of L
+    consecutive lanes, from their lane_summaries (L, 131) and
+    the state entering the first, run_c () and seen_c (64,):
+
     - run: lane l leaves (run_l + v_l) % 62 if all its pixels repeat the
       one before, else its trailing streak % 62; unrolled, the run after
       lane l is (t_j + v_(j+1) + ... + v_l) % 62 for the last such broken
       lane j <= l (t_j its trailing streak), or (run_c + v_0 + ... + v_l)
       % 62 if there is none: one cummax and one cumsum;
     - table: slot s enters lane l holding the last differing pixel of hash
-      s in the lanes before l, else seen_c[s]: per-lane last writers by
-      one scatter_reduce, then a cummax over the lanes."""
-    lanes, n = packed.shape
-    dev = packed.device
-    idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+      s in the lanes before l, else seen_c[s]: a cummax over the lanes."""
+    lanes = summ.shape[0]
+    dev = summ.device
     lane = torch.arange(lanes, dtype=torch.int32, device=dev)
-    v = (n_px - lane * n).clamp(0, n).to(torch.int32)
-    prev_in = torch.cat([prev_c.reshape(1), packed[:-1, -1]])
-    prev_rows = torch.cat([prev_in[:, None], packed[:, :-1]], dim=1)
-    noneq = (idx < v[:, None]) & (packed != prev_rows)
-
-    brk = torch.where(noneq, idx + 1, 0).amax(dim=1)  # last break + 1
-    tail = (v - brk).clamp(min=0)
+    v, brk, tail = summ[:, 0], summ[:, 1], summ[:, 2]
+    jb, vals = summ[:, 3:67], summ[:, 67:]
     broken = torch.cummax(torch.where(brk > 0, lane, -1), dim=0).values
     csum = torch.cumsum(v, dim=0)
     at = broken.clamp(min=0).to(torch.int64)
@@ -286,17 +315,12 @@ def lane_carries(packed, n_px: int, prev_c, run_c, seen_c):
     run_after = (since + csum) % 62
     run_in = torch.cat([run_c.reshape(1), run_after[:-1]]).to(torch.int32)
 
-    h = hash6(packed).to(torch.int64)
-    pos1 = torch.where(noneq, idx + 1, 0)
-    jb = torch.zeros((lanes, 64), dtype=torch.int32, device=dev)
-    jb = jb.scatter_reduce(1, h, pos1, "amax")
-    vals = torch.gather(packed, 1, (jb - 1).clamp(min=0).to(torch.int64))
     upto = torch.cummax(torch.where(jb > 0, lane[:, None], -1), dim=0).values
     before = torch.cat([torch.full((1, 64), -1, dtype=upto.dtype, device=dev),
                         upto[:-1]])
     seen_in = torch.where(before >= 0, torch.gather(
         vals, 0, before.clamp(min=0).to(torch.int64)), seen_c[None, :])
-    return v, prev_in, run_in, seen_in.T.contiguous()
+    return run_in, seen_in.T.contiguous()
 
 
 def _encode_window_lanes(raw_u8, n_px: int, prev_c, run_c, seen_c,

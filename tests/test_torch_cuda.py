@@ -17,6 +17,11 @@ latency probe behind the replay chain bound against its plain loop.
 ServingCodec over the committed real corpus, PackedDecoder and
 PackedEncoder on lanes of several streams, the api's torch backend and
 one request through the bucketed and serving codecs, against the oracle.
+The parallel layer as a job of 4 ranks on the one card (gloo, the
+exchange staged through host memory): dp decode and encode, sp decode
+(the adversarial INDEX stream too) and sp encode of
+tests/torch_parallel_jobs.py, and the dry run, against the oracle; the
+scan engine's decode_bytes on the card against its CPU result.
 Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
@@ -649,3 +654,60 @@ def test_dep_chain_matches_plain_version(cuda):
     assert kernels.launch_counts()["dep_chain"] == before + 1
     lat, mhz = replay_probe.chain_latency(cuda)
     assert 1 <= lat < 64 and 100 < mhz < 5000
+
+
+def test_parallel_jobs_on_card_match_oracle(cuda, tmp_path):
+    """tests/test_torch_parallel.py's world-4 cases with every rank on the
+    card; each rank launched the kernels of its paths."""
+    import torch_parallel_jobs as jobs
+
+    job = jobs.run_job(tmp_path, jobs.inputs4, jobs.world4, 4, "cuda", 600)
+    jobs.check_dp_decode(job, "dp")
+    jobs.check_dp_encode(job)
+    for r in job["ranks"]:
+        assert jobs.overflow_images(r["dp_overflow"]) == jobs.OVERFLOW_IMAGES
+    for name in ("sp", "adv"):
+        _, _, rounds = jobs.check_sp_decode(job, name)
+        assert len(set(rounds)) == 1 and rounds[0] <= 4 * jobs.SP_TILES + 2
+    for name in ("enc_rgb", "enc_rgba"):
+        jobs.check_sp_encode(job, name, [0, 1, 2, 3])
+    for counts in job["counts"]:
+        for name in ("replay", "place_fill", "compact", "emit",
+                     "replay_summary", "fields"):
+            assert counts[name] > 0, name
+
+
+def test_dryrun_multichip_on_card(cuda):
+    from qoipp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4, timeout=600)
+    assert len({o["checksum"] for o in out}) == 1
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_decode_bytes_on_card_matches_cpu(cuda, channels):
+    from qoipp_tpu_torch.ops import boundary
+    from qoipp_tpu_torch.ops import decode as dec_ops
+
+    desc, raws, blobs = make_corpus(1, 200, 120, seed=5, channels=channels)
+    blob = blobs[0]
+    n_px = desc.width * desc.height
+    qb = dec_ops._bucket(blob.size - 14, boundary.BLOCK)
+    region = np.zeros(qb + 8, np.uint8)
+    region[: blob.size - 14] = blob[14:]
+    s_tiles, n_cap = dec_ops.pick_tiles(qb), dec_ops._bucket(n_px, 128)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        reg = torch.from_numpy(region).to(dev)
+        info = boundary.analyze_region(reg[:qb], blob.size - 22, n_px)
+        before = kernels.launch_counts()["replay_summary"]
+        packed, filled = dec_ops.decode_bytes(
+            reg, info["real"], info["produced"], info["pix_before"], n_px,
+            s_tiles, n_cap)
+        assert (kernels.launch_counts()["replay_summary"] > before) == (
+            dev.type == "cuda")
+        out.append((packed.cpu(), int(filled)))
+    assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]
+    got = out[0][0][:n_px].numpy().view(np.uint8).reshape(n_px, 4)
+    want = oracle.decode(blob, desc, Channels.RGBA).reshape(n_px, 4)
+    assert np.array_equal(got, want)

@@ -212,3 +212,18 @@ def test_oracle_builds_its_own_library():
     assert oracle.build() == oracle.LIB_PATH
     assert oracle.LIB_PATH.parent.name == "qoipp_tpu_torch"
     assert oracle.LIB_PATH.parent.parent.name == "build"
+
+
+def test_pyproject_lists_every_subpackage_of_the_port():
+    """A non-editable install ships only the packages pyproject.toml
+    names: every directory of the port with an __init__.py is one."""
+    import tomllib
+
+    listed = set(tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "tool"]["setuptools"]["packages"])
+    pkg = ROOT / "qoipp_tpu_torch"
+    found = {".".join(d.relative_to(ROOT).parts)
+             for d in [pkg, *pkg.rglob("*")]
+             if d.is_dir() and (d / "__init__.py").exists()}
+    assert "qoipp_tpu_torch.parallel" in found
+    assert found <= listed, sorted(found - listed)

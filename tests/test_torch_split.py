@@ -17,6 +17,7 @@ from qoipp_tpu.ops.bitops import START_PIXEL_PACKED
 from qoipp_tpu_torch import convert
 from qoipp_tpu_torch.convert import words_to_numpy
 from qoipp_tpu_torch.models import split
+from qoipp_tpu_torch.ops import decode as dec_ops
 
 torch.set_num_threads(1)
 
@@ -195,7 +196,7 @@ def test_propagate_matches_jax_scan(seed, lanes, p_bit):
     want_p, want_s, want_fin = _jax_propagate(
         jnp.asarray(heads), jnp.asarray(out_p), jnp.asarray(out_s),
         jnp.asarray(pu), jnp.asarray(sw))
-    got_p, got_s, got_fin = split.propagate(
+    got_p, got_s, got_fin = dec_ops.propagate(
         torch.from_numpy(heads), words_to_torch(out_p[None]),
         words_to_torch(out_s.T), torch.from_numpy(pu[None].copy()),
         torch.from_numpy(sw.T.copy()))
