@@ -117,7 +117,24 @@
    shard with its exchanged carries, each on the arguments the path gave
    it (the rows' "held_at"), and times every parallel path by the host
    clock between barriers (1 first call, 3 warmup, 5 timed), in ms and
-   MPix/s, logged as ranks sharing one card.
+   MPix/s, logged as ranks sharing one card;
+6. the tools phase: the port's tools and examples as a user runs them,
+   each path's launches counted alone: the differential fuzzer
+   (qoipp_tpu_torch.tools.fuzz, seed 0, 30 rounds of its eight targets at
+   random shapes, every result against the oracle), tools.bench over the
+   committed real corpus and over the batch RGB corpus (its enc x dec
+   cross matrix first, the torch-batch row on the second) and its
+   one-shot --sizes sweep (512x512, 1920x1080, 3840x2160, native against
+   torch), examples.ingest_pipeline at --batch 16 on the batch RGB corpus
+   (decoded pixels against the oracle, features against fp32) and
+   examples.serving_codec, bench at one timed call a cell (its timed
+   table is `python -m qoipp_tpu_torch.tools.bench`'s own run); every
+   launch goes through a watched wrapper, and after each path a sample of
+   its calls a kernel (the first, the largest, the first at the last
+   shape, every K6 call) is held against the plain version on copies of
+   its arguments (K1 and K5 as above, from the kernel's own carry: the
+   rows' "held_at"); the phase must launch and hold K1-K6 and E1, and
+   its counts join the kernel table's launches ("tools_launches" alone).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -299,6 +316,14 @@ PARALLEL = dict(
     sp_encode=("sparse", "screenshot_requests"),  # RGB 4096^2; RGBA uneven
     timeout=600,  # s a job
 )
+
+
+# the tools phase: the fuzzer's rounds of all eight targets (seed 0), the
+# timed calls a bench cell, and the kernels the phase must launch (K1-K6
+# and E1)
+TOOLS_FUZZ_ITERATIONS = 30
+TOOLS_NEEDS = ("replay", "place_fill", "compact", "emit", "replay_summary",
+               "logfill", "fields")
 
 
 PTXAS = {}  # kernel entry (mangled name) -> ptxas' "Used ..." report
@@ -725,7 +750,7 @@ def phase3_api(s, dev):
 def drive(label, fn, needs, totals):
     """Run one path with every launch count at 0, then require each kernel
     of `needs` (or of what `needs()` returns after the run) to have
-    launched in it; add the counts to totals."""
+    launched in it; add the counts to totals.  Returns the run's counts."""
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     fn()
@@ -737,6 +762,7 @@ def drive(label, fn, needs, totals):
         expect(launches[name] > 0, f"{label} never launched {name}")
     for name, n in launches.items():
         totals[name] = totals.get(name, 0) + n
+    return launches
 
 
 def _kernel_row(name, launches, err, ms, plain_ms, nbytes, ops,
@@ -1878,11 +1904,13 @@ def _recorded(*targets):
             setattr(module, n, fn)
 
 
-# the wrappers the parallel paths call, by the name their caller looks up:
-# the kernel's name and its plain version (replay_batch_carry: K1, held by
-# _replay_check)
+# the wrappers the parallel and tools paths call, by the name their caller
+# looks up: the kernel's name and its plain version (None: K1 and K5, held
+# by _replay_check)
 _RECORDED = {
     "replay_batch_carry": ("replay", None),
+    "replay_batch_summary": ("replay_summary", None),
+    "logfill_batch": ("logfill", replay_kernel.logfill_batch_reference),
     "place_fill": ("place_fill", place_kernel.place_fill_reference),
     "encode_fields_planes": ("fields",
                              fields_kernel.encode_fields_planes_reference),
@@ -1895,6 +1923,14 @@ _DP_CALLS = ((replay_kernel, ("replay_batch_carry",)),
              (enc_ops, ("compact_rows", "emit_bytes")))
 _SP_ENCODE_CALLS = ((device_stream, ("encode_fields_planes", "compact_rows",
                                      "emit_bytes")),)
+# where the tools and examples reach them: the one-shot codec
+# (ops/decode, ops/encode), BatchPipeline, SplitDecoder and the split
+# windows (models/split), the device stream codecs and ServingCodec
+_TOOLS_CALLS = ((replay_kernel, ("replay_batch_carry", "replay_batch_summary",
+                                 "logfill_batch")),
+                (place_kernel, ("place_fill",)),
+                (compact_kernel, ("compact_rows",)),
+                (enc_ops, ("compact_rows", "emit_bytes"))) + _SP_ENCODE_CALLS
 
 
 def _shapes(args, kwargs=None):
@@ -1907,6 +1943,89 @@ def _shapes(args, kwargs=None):
         f"{k}={one(v)}" for k, v in (kwargs or {}).items()]) + ")"
 
 
+def _copy_strided(x):
+    """A copy of a call's argument or result with its shape and strides (a
+    view of a larger buffer copied alone)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(map(_copy_strided, x))
+    if isinstance(x, dict):
+        return {k: _copy_strided(v) for k, v in x.items()}
+    if not isinstance(x, torch.Tensor):
+        return x
+    if 0 in x.stride():
+        return x.clone()
+    return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                               device=x.device).copy_(x)
+
+
+def _elements(x):
+    """The tensor elements in a call's arguments."""
+    if isinstance(x, torch.Tensor):
+        return x.numel()
+    if isinstance(x, dict):
+        return sum(map(_elements, x.values()))
+    if isinstance(x, (tuple, list)):
+        return sum(map(_elements, x))
+    return 0
+
+
+@contextlib.contextmanager
+def _sampled(targets, every=("logfill",)):
+    """A bounded sample of the calls made inside the block to the wrappers
+    of ``targets`` (as _recorded takes them) that launched their kernel:
+    per kernel the first, the one with the most argument elements, the
+    first of the last run of calls at one shape (a timed loop repeats its
+    shape: those repeats are neither copied nor kept), and every call of
+    a kernel in ``every``; each with copies of its arguments and result
+    (not K1's and K5's: _replay_check replays them).  Yields (kept,
+    launched): {kernel: {call number: (tags, (name, args, kwargs,
+    result))}} and {kernel: calls that launched}."""
+    kept, launched, saved = {}, {}, []
+    last_shape, largest = {}, {}
+
+    def recorder(name, fn):
+        kernel, plain = _RECORDED[name]
+
+        def call(*args, **kwargs):
+            before = kernels.LAUNCHES[kernel]
+            out = fn(*args, **kwargs)
+            if kernels.LAUNCHES[kernel] == before:
+                return out
+            i = launched[kernel] = launched.get(kernel, 0) + 1
+            shape, size = _shapes(args, kwargs), _elements((args, kwargs))
+            tags = [t for t, due in (
+                ("first", i == 1),
+                ("largest", size > largest.get(kernel, -1)),
+                ("last shape", shape != last_shape.get(kernel)),
+                ("every", kernel in every)) if due]
+            last_shape[kernel] = shape
+            if not tags:
+                return out
+            if "largest" in tags:
+                largest[kernel] = size
+            k = kept.setdefault(kernel, {})
+            for j, (t, c) in list(k.items()):  # the tags this call takes
+                t = [x for x in t if x not in tags or x == "every"]
+                if t:
+                    k[j] = (t, c)
+                else:
+                    del k[j]
+            k[i] = (tags, (name, _copy_strided(args), _copy_strided(kwargs),
+                           None if plain is None else _copy_strided(out)))
+            return out
+        return call
+
+    for module, names in targets:
+        for n in names:
+            saved.append((module, n, getattr(module, n)))
+            setattr(module, n, recorder(n, saved[-1][2]))
+    try:
+        yield kept, launched
+    finally:
+        for module, n, fn in saved:
+            setattr(module, n, fn)
+
+
 def _hold_recorded(held, calls, what):
     """Each recorded kernel call's result on the path against its plain
     version on the same arguments (K1 as _replay_check holds it: its first
@@ -1914,7 +2033,7 @@ def _hold_recorded(held, calls, what):
     for name, args, kwargs, out in calls:
         kernel, plain = _RECORDED[name]
         at = f"{what}: {name}{_shapes(args, kwargs)}"
-        if kernel == "replay":
+        if plain is None:
             err, _, _ = _replay_check(kernel, args[0], args[1], args[2:], at)
             _hold(held, kernel, err, f"{at}; first and last "
                   f"{PLAIN_REPLAY_ROWS} rows")
@@ -2195,6 +2314,98 @@ def phase5_parallel(jobs, rows, card):
                         f"{ {k: round(v, 4) for k, v in p['parts'].items()} }")
 
 
+def _hold_sampled(held, kept, launched, what):
+    """Each sampled call of a tools path (_sampled) against its kernel's
+    plain version, as _hold_recorded holds it.  Returns the calls held a
+    kernel."""
+    for kernel, calls in kept.items():
+        for i, (tags, call) in sorted(calls.items()):
+            _hold_recorded(held, [call], f"{what}, call {i} of "
+                           f"{launched[kernel]} ({', '.join(tags)})")
+    return {k: len(v) for k, v in kept.items()}
+
+
+def phase6_tools(rgb, dev, totals):
+    """The tools phase: the port's tools and examples as a user runs them,
+    each a path whose launches are counted alone.  The fuzzer (seed 0,
+    TOOLS_FUZZ_ITERATIONS rounds of all eight targets); tools.bench over
+    the committed real corpus and over the batch RGB corpus (written to a
+    temporary directory: the torch-batch row), each after its cross
+    matrix, one timed call a cell (the timed table is the bench command's
+    own run), and its one-shot --sizes sweep; examples.ingest_pipeline at
+    --batch 16 on the batch RGB corpus and examples.serving_codec.  Every
+    launch of a path goes through a wrapper that _sampled watches; after
+    each path a sample of its calls (_sampled's) is held against the
+    kernels' plain versions.  The phase must launch, and hold, every
+    kernel of TOOLS_NEEDS; its counts are added to ``totals``.  Returns
+    (its counts, {kernel: the shapes held})."""
+    from qoipp_tpu_torch.examples import ingest_pipeline, serving_codec
+    from qoipp_tpu_torch.tools import bench, fuzz
+
+    t_phase = time.perf_counter()
+    phase, held = {}, {}
+
+    def run(label, fn, needs):
+        t0 = time.perf_counter()
+        with _sampled(_TOOLS_CALLS) as (kept, launched):
+            launches = drive(f"the tools phase ({label})", fn, needs, phase)
+        for name, n in launches.items():
+            expect(launched.get(name, 0) == n, f"the tools phase ({label}) "
+                   f"launched {name} {n} times, {launched.get(name, 0)} of "
+                   "them through the wrappers it watches")
+        t1 = time.perf_counter()
+        n_held = _hold_sampled(held, kept, launched,
+                               f"the tools phase ({label})")
+        log(f"phase 6: {label}: {t1 - t0:.1f} s; then {n_held} of its calls "
+            f"a kernel held against the plain versions in "
+            f"{time.perf_counter() - t1:.1f} s")
+
+    def fuzz_all():
+        seconds = fuzz.run(TOOLS_FUZZ_ITERATIONS, 0, device=dev,
+                           report=lambda m: log(f"phase 6: fuzz: {m}"))
+        log(f"phase 6: fuzz OK: {TOOLS_FUZZ_ITERATIONS} iterations x "
+            f"{len(seconds)} targets, seed 0, every result equal to the "
+            f"oracle; s a target: "
+            f"{ {k: round(v, 2) for k, v in seconds.items()} }")
+
+    def main_of(tool, argv):
+        argv = [*argv, "--device", str(dev)]
+        return lambda: expect(tool.main(argv) == 0,
+                              f"{tool.__name__} {argv} failed")
+
+    untimed = ["--runs", "1", "--no-warmup", "--no-png"]
+    run("fuzz", fuzz_all, ("replay", "place_fill", "compact", "emit",
+                           "replay_summary", "fields"))
+    run("bench, real corpus", main_of(bench, [str(CORPUS_DIR), *untimed]),
+        ("replay", "logfill", "place_fill", "compact", "emit"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, blob in enumerate(rgb["blobs"]):
+            (Path(tmp) / f"rgb_{i:02d}.qoi").write_bytes(blob.tobytes())
+        run("bench, batch RGB corpus", main_of(
+            bench, [tmp, *untimed, "--no-serving"]),
+            ("replay", "place_fill", "compact", "emit"))
+        run("ingest example", main_of(ingest_pipeline, [
+            "--batch", str(len(rgb["blobs"])), "--dataset", tmp]),
+            ("replay", "place_fill"))
+    run("bench, one-shot sweep", main_of(bench, ["--sizes"]),
+        ("replay", "compact", "emit"))
+    run("serving example", main_of(serving_codec, []),
+        ("replay", "place_fill"))
+    log(f"phase 6: launches over the tools phase: "
+        f"{ {k: v for k, v in phase.items() if v} }")
+    for name in TOOLS_NEEDS:
+        expect(phase.get(name, 0) > 0, f"the tools phase never launched "
+               f"{name}")
+        expect(name in held, f"the tools phase held {name} at no shape")
+    log(f"phase 6: held against their plain versions at the tools "
+        f"phase's shapes: { {k: len(v) for k, v in held.items()} }")
+    for name, n in phase.items():
+        totals[name] = totals.get(name, 0) + n
+    log(f"phase 6: the tools phase took {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return phase, held
+
+
 def main():
     card = phase0_device()
     dev = torch.device("cuda")
@@ -2276,6 +2487,14 @@ def main():
                    d.width * d.height / 1e6, card)
     phase5_serving_times(serve, card)
     phase5_packed_times(serve, card)
+    tools, tools_held = phase6_tools(runs[0], dev, launches)
+    for row in rows:
+        row["tools_launches"] = tools.get(row["name"], 0)
+        row["launches"] += row["tools_launches"]
+        shapes = tools_held.get(row["name"], [])
+        row.setdefault("held_at", []).extend(shapes)
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            h["max_abs_err"] for h in shapes])
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

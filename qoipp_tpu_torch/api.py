@@ -103,8 +103,12 @@ def _materialize_gen(gen: Callable[[int], Pixel], desc: Desc) -> np.ndarray:
 # One-shot auto-routing threshold (pixels).  None routes every one-shot
 # call native; an int routes images of at least that many pixels to the
 # device where a CUDA device is present.  A one-shot call moves the raw
-# pixels across the host link both ways, so the default stays None until
-# a measurement on the card says where the device wins.  Set it with
+# pixels across the host link both ways and runs ~1,000 small launches,
+# so the default stays None: on an NVIDIA H100 80GB HBM3 at 700 W
+# (python -m qoipp_tpu_torch.tools.bench --sizes, warm) native is faster
+# at 512x512, 1920x1080 and 3840x2160 in both directions, torch/native
+# decode 35.1x, 4.82x, 1.26x and encode 5.93x, 3.23x, 3.56x; decode
+# nears the crossover only past 8 MPix (PERF.md section 7).  Set it with
 # set_oneshot_device_threshold() or the QOIPP_TPU_ONESHOT_DEVICE_THRESHOLD
 # environment variable (empty or "none": never).
 ONESHOT_DEVICE_THRESHOLD: Optional[int] = None

@@ -279,6 +279,92 @@ def encode_batch_checked(packed, n_px: int, header, channels: int, *,
                                out_cap)
 
 
+def encode_batch(packed, n_px: int, header, channels: int):
+    """Batched encode: (B, Nb) int32 pixel words -> ((B, out_cap) uint8
+    streams, (B,) int32 lengths); encode_batch_checked at its default
+    caps, which never clear an ok flag (a caller with tighter caps calls
+    encode_batch_checked and reads the flags)."""
+    out, total_len, _ = encode_batch_checked(packed, n_px, header, channels)
+    return out, total_len
+
+
+def encode_core(packed, n_px: int, header, channels: int):
+    """One image's (Nb,) pixel words -> ((out_cap,) uint8 stream, 0-d
+    length): encode_batch at B = 1."""
+    out, total_len = encode_batch(packed[None], n_px, header, channels)
+    return out[0], total_len[0]
+
+
+# ---------------------------------------------------------------------------
+# Scatter emission: the differential oracles of the kernel path, in plain
+# torch (the JAX package's encode_core_scatter / encode_batch_scatter).
+# Each pixel's template byte k lands at its exclusive byte offset + k; for
+# a fixed k those offsets only grow and every output byte has one writer,
+# so six index_adds and the 9-byte tail place the whole stream.
+# ---------------------------------------------------------------------------
+
+
+def encode_batch_scatter(packed, n_px: int, header, channels: int):
+    """(B, Nb) int32 pixel words, n_px valid a row (1 <= n_px <= Nb) ->
+    ((B, w_cap) uint8 streams zeroed past each length, (B,) int32
+    lengths), w_cap = (channels + 1) * Nb + 31 as the JAX package sizes
+    it.  The per-pixel fields are E1's plain version from the start
+    state."""
+    from .fields_kernel import (BLK, encode_fields_planes_reference,
+                                start_state)
+
+    b, nb = packed.shape
+    dev = packed.device
+    n_px = int(n_px)
+    tlo, thn, run_out, _ = encode_fields_planes_reference(
+        packed, torch.full((b,), n_px, dtype=torch.int32, device=dev),
+        channels, *start_state(b, dev))
+    nbytes = ((thn >> 16) & 0xFFFF).to(torch.int64)
+    offsets = 14 + torch.cumsum(nbytes, dim=1) - nbytes
+    chunks_end = 14 + nbytes.sum(dim=1)
+
+    w_cap = (channels + 1) * nb + 14 + 8 + 9
+    row = w_cap + 1  # the last column takes the clamped indices
+    base = torch.arange(b, dtype=torch.int64, device=dev)[:, None] * row
+    out = torch.zeros(b * row, dtype=torch.int32, device=dev)
+    for k in range(6):
+        plane = tlo if k < 4 else thn
+        byte = (plane >> (8 * (k % 4))) & 0xFF
+        contrib = torch.where(k < nbytes, byte, 0)
+        out.index_add_(0, (base + (offsets + k).clamp(max=w_cap)).reshape(-1),
+                       contrib.reshape(-1))
+
+    # the trailing run (the run counter after pixel n_px - 1) and the end
+    # marker: [run, 0 x 7, 1] with a run, else [0 x 7, 1, 0]
+    trailing = run_out[:, (n_px - 1) // BLK]
+    has_trail = trailing > 0
+    marker = torch.tensor([0, 0, 0, 0, 0, 0, 0, 1, 0], dtype=torch.int32,
+                          device=dev)
+    tail = torch.where(
+        has_trail[:, None],
+        torch.cat([(TAG_RUN | ((trailing - 1) & 0x3F))[:, None],
+                   marker[None, :8].expand(b, 8)], dim=1),
+        marker[None, :])
+    tail_at = (chunks_end[:, None] + torch.arange(9, device=dev)[None, :])
+    out.index_add_(0, (base + tail_at.clamp(max=w_cap)).reshape(-1),
+                   tail.reshape(-1))
+
+    out = (out & 0xFF).to(torch.uint8).reshape(b, row)[:, :w_cap]
+    out[:, :14] = header.to(torch.uint8)
+    total_len = chunks_end + has_trail.to(torch.int64) + 8
+    col = torch.arange(w_cap, device=dev)[None, :]
+    out = torch.where(col < total_len[:, None], out, 0)
+    return out, total_len.to(torch.int32)
+
+
+def encode_core_scatter(packed, n_px: int, header, channels: int):
+    """One image's (Nb,) pixel words -> ((w_cap,) uint8 stream, 0-d int32
+    length): encode_batch_scatter at B = 1."""
+    out, total_len = encode_batch_scatter(packed[None], n_px, header,
+                                          channels)
+    return out[0], total_len[0]
+
+
 # ---------------------------------------------------------------------------
 # Packed-lane encode: many whole streams per compaction and emission lane
 # (models/packed.PackedEncoder), the port of the JAX package's

@@ -21,7 +21,9 @@ The parallel layer as a job of 4 ranks on the one card (gloo, the
 exchange staged through host memory): dp decode and encode, sp decode
 (the adversarial INDEX stream too) and sp encode of
 tests/torch_parallel_jobs.py, and the dry run, against the oracle; the
-scan engine's decode_bytes on the card against its CPU result.
+scan engine's decode_bytes on the card against its CPU result.  The
+fuzzer's eight targets at three rounds each, the ingest example at B=2,
+and every tool refusing the card where torch reports none.
 Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
@@ -38,6 +40,7 @@ from qoipp_tpu_torch import kernels, oracle
 from qoipp_tpu_torch.common import Channels, Desc
 from qoipp_tpu_torch.kernels import selfcheck
 from qoipp_tpu_torch.ops.bitops import hash6
+from qoipp_tpu_torch.tools import fuzz
 from qoipp_tpu_torch.utils.corpus import make_corpus, make_image
 
 pytestmark = pytest.mark.cuda
@@ -711,3 +714,48 @@ def test_decode_bytes_on_card_matches_cpu(cuda, channels):
     got = out[0][0][:n_px].numpy().view(np.uint8).reshape(n_px, 4)
     want = oracle.decode(blob, desc, Channels.RGBA).reshape(n_px, 4)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("target", sorted(fuzz.FUZZERS))
+def test_fuzz_target_on_card(cuda, target):
+    """Three rounds of each fuzz target on the card (seed 0), every result
+    against the oracle; the device targets launch kernels."""
+    before = sum(kernels.launch_counts().values())
+    fuzz.run(3, 0, only=target, device=cuda)
+    torch.cuda.synchronize()
+    assert (sum(kernels.launch_counts().values()) > before) == (
+        target != "stream")
+
+
+def test_ingest_example_on_card(cuda, capsys):
+    """The ingest example at B=2: decoded pixels equal the oracle's and
+    the bf16 features agree with fp32 (the example raises otherwise)."""
+    from qoipp_tpu_torch.examples import ingest_pipeline
+
+    before = kernels.launch_counts()
+    assert ingest_pipeline.main(["--batch", "2", "--size", "64",
+                                 "--runs", "2"]) == 0
+    after = kernels.launch_counts()
+    assert after["replay"] > before["replay"]
+    assert after["place_fill"] > before["place_fill"]
+    assert "device time on" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("tools.fuzz", ["-n", "1"]),
+    ("tools.bench", ["--synthetic", "1", "--width", "64", "--height", "48"]),
+    ("tools.bench", ["--sizes", "64x48"]),
+    ("examples.ingest_pipeline", ["--batch", "1", "--size", "64"]),
+    ("examples.serving_codec", []),
+])
+def test_tools_refuse_cuda_without_card(cuda, monkeypatch, tool, argv):
+    """Asked for the card (their default) where torch sees none, the tools
+    raise; they never go on on the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"qoipp_tpu_torch.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = kernels.launch_counts()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    assert kernels.launch_counts() == before
