@@ -134,7 +134,31 @@
    shape, every K6 call) is held against the plain version on copies of
    its arguments (K1 and K5 as above, from the kernel's own carry: the
    rows' "held_at"); the phase must launch and hold K1-K6 and E1, and
-   its counts join the kernel table's launches ("tools_launches" alone).
+   its counts join the kernel table's launches ("tools_launches" alone);
+7. the profiles phase, in a process of its own (a long process's
+   torch.profiler drops device events): the stage profiles and
+   host-stage experiments of qoipp_tpu_torch/benchmarks, each timed
+   (CUDA events; device ms and
+   launches by torch.profiler) after it holds its results, through the
+   same watched wrappers and sampled holds as phase 6: profile_r3 on the
+   batch RGB and RGBA corpora (each decode stage and each encode stage
+   alone, their sum beside the fused call, the last stage's output
+   against the fused call's and the oracle's), profile_bucket_decode
+   (the real corpus's over-cap streams x 8 by geometry),
+   profile_packed_decode and profile_packed_encode (real-corpus packed
+   lanes), expt_boundary2l (the two-level boundary scan against the
+   shipped one on the script's byte soup and the batch RGB regions,
+   timed at B=128 x 749,568 bytes), expt_table_stack (both stacked table
+   fills against the shipped sort-based scans, timed at 12 x 458,752 and
+   32 x 524,288 rows), expt_compact (K3 at 12 x 917,504 rows against its
+   plain version), expt_enc_lanes (the packed encoder at 8, 16 and 32
+   lanes against the oracle) and expt_h2d_chunks (a 54 MB payload in 1 to
+   256 pieces: pageable, pinned, stage_h2d and D2H MB/s); then every
+   engine that stages through utils/transport.stage_h2d at 1 MB chunks
+   (SplitDecoder, the streaming decoder, PackedDecoder, PackedEncoder,
+   ServingCodec) against the oracle, each with at least one upload cut
+   into pieces; the phase must launch and hold K1-K4, and its counts join
+   the kernel table's launches ("profiles_launches" alone).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failure raises, so the script exits
@@ -150,6 +174,7 @@ for _name in ("jax", "qoipp_tpu", "bench", "benchmarks"):
 import contextlib  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
+import pickle  # noqa: E402
 import re  # noqa: E402
 import shutil  # noqa: E402
 import subprocess  # noqa: E402
@@ -196,7 +221,7 @@ from qoipp_tpu_torch.ops.bitops import pixels_to_packed  # noqa: E402
 from qoipp_tpu_torch.parallel import dryrun, launch  # noqa: E402
 from qoipp_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from qoipp_tpu_torch.parallel import sharded  # noqa: E402
-from qoipp_tpu_torch.utils import profile  # noqa: E402
+from qoipp_tpu_torch.utils import profile, transport  # noqa: E402
 from qoipp_tpu_torch.utils.corpus import make_corpus, make_image  # noqa: E402
 
 W, H = 1920, 1088
@@ -324,6 +349,14 @@ PARALLEL = dict(
 TOOLS_FUZZ_ITERATIONS = 30
 TOOLS_NEEDS = ("replay", "place_fill", "compact", "emit", "replay_summary",
                "logfill", "fields")
+# the profiles phase: timed calls a measurement of the stage profiles and
+# experiments, the lane counts of the lane sweep (its script's 8-64, cut
+# for time), the chunk size the staging engines run at, and the kernels
+# the phase must launch and hold (K1-K4)
+PROFILE_RUNS = 3
+PROFILE_LANES = (8, 16, 32)
+PROFILE_CHUNK_BYTES = 1 << 20
+PROFILE_NEEDS = ("replay", "place_fill", "compact", "emit")
 
 
 PTXAS = {}  # kernel entry (mangled name) -> ptxas' "Used ..." report
@@ -2325,6 +2358,26 @@ def _hold_sampled(held, kept, launched, what):
     return {k: len(v) for k, v in kept.items()}
 
 
+def _watched(phase_no, label, fn, needs, phase, held):
+    """Run one path of phase ``phase_no`` (drive(): its launches counted
+    alone, into ``phase``) inside _sampled, require every launch to have
+    gone through the watched wrappers, then hold the sampled calls
+    against the plain versions (into ``held``)."""
+    t0 = time.perf_counter()
+    with _sampled(_TOOLS_CALLS) as (kept, launched):
+        launches = drive(f"phase {phase_no} ({label})", fn, needs, phase)
+    for name, n in launches.items():
+        expect(launched.get(name, 0) == n, f"phase {phase_no} ({label}) "
+               f"launched {name} {n} times, {launched.get(name, 0)} of "
+               "them through the wrappers it watches")
+    t1 = time.perf_counter()
+    n_held = _hold_sampled(held, kept, launched,
+                           f"phase {phase_no} ({label})")
+    log(f"phase {phase_no}: {label}: {t1 - t0:.1f} s; then {n_held} of its "
+        f"calls a kernel held against the plain versions in "
+        f"{time.perf_counter() - t1:.1f} s")
+
+
 def phase6_tools(rgb, dev, totals):
     """The tools phase: the port's tools and examples as a user runs them,
     each a path whose launches are counted alone.  The fuzzer (seed 0,
@@ -2346,19 +2399,7 @@ def phase6_tools(rgb, dev, totals):
     phase, held = {}, {}
 
     def run(label, fn, needs):
-        t0 = time.perf_counter()
-        with _sampled(_TOOLS_CALLS) as (kept, launched):
-            launches = drive(f"the tools phase ({label})", fn, needs, phase)
-        for name, n in launches.items():
-            expect(launched.get(name, 0) == n, f"the tools phase ({label}) "
-                   f"launched {name} {n} times, {launched.get(name, 0)} of "
-                   "them through the wrappers it watches")
-        t1 = time.perf_counter()
-        n_held = _hold_sampled(held, kept, launched,
-                               f"the tools phase ({label})")
-        log(f"phase 6: {label}: {t1 - t0:.1f} s; then {n_held} of its calls "
-            f"a kernel held against the plain versions in "
-            f"{time.perf_counter() - t1:.1f} s")
+        _watched(6, label, fn, needs, phase, held)
 
     def fuzz_all():
         seconds = fuzz.run(TOOLS_FUZZ_ITERATIONS, 0, device=dev,
@@ -2403,6 +2444,197 @@ def phase6_tools(rgb, dev, totals):
         totals[name] = totals.get(name, 0) + n
     log(f"phase 6: the tools phase took {time.perf_counter() - t_phase:.1f}"
         f" s")
+    return phase, held
+
+
+@contextlib.contextmanager
+def _staging_counted():
+    """Count the staged uploads of every engine that stages through
+    stage_h2d, and those of them that went in one piece (upload)."""
+    counts = dict(staged=0, one_shot=0)
+    saved = [(m, "stage_h2d", m.stage_h2d)
+             for m in (split, packed_lanes, serving, device_stream)]
+    saved.append((transport, "upload", transport.upload))
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for m, name, fn in saved:
+        setattr(m, name, counted("one_shot" if m is transport else "staged",
+                                 fn))
+    try:
+        yield counts
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def phase7_staging(s, sparse, dev):
+    """Each engine that stages through stage_h2d, at PROFILE_CHUNK_BYTES
+    chunks, against the oracle: SplitDecoder on the sparse stream, the
+    streaming decoder on it at 4 MB windows, PackedDecoder and
+    PackedEncoder alone and ServingCodec (decode and encode: packed tiers,
+    the split group, geometry buckets) on the serving corpus.  Returns
+    each engine's staged uploads and those cut into pieces."""
+    blobs, raws, descs, names, refs = (
+        s[k] for k in ("blobs", "raws", "descs", "names", "refs"))
+    dec = split.SplitDecoder(lanes=SPLIT_LANES, device=dev)
+
+    def split_decode():
+        out, where, ds, _ = dec.decode_to_device([sparse["blob"]])
+        expect(np.array_equal(dec.gather(out, where, ds)[0], sparse["want"]),
+               "chunked staging: SplitDecoder differs from the oracle")
+
+    def stream_decode():
+        d = sparse["desc"]
+        px, _ = device_stream.stream_decode(
+            sparse["blob"], 4 << 20, pixel_cap=-(-d.width * d.height // 8192)
+            * 8192, device=dev)
+        expect(np.array_equal(px, sparse["want"]), "chunked staging: the "
+               "streaming decoder differs from the oracle")
+
+    engines = (
+        ("SplitDecoder", split_decode),
+        ("DeviceStreamDecoder", stream_decode),
+        ("PackedDecoder", lambda: _check_all(
+            s["packed"]["dec"].decode(blobs), raws, names,
+            "chunked staging: PackedDecoder")),
+        ("PackedEncoder", lambda: _check_all(
+            s["packed"]["enc"].encode(raws, descs), refs, names,
+            "chunked staging: PackedEncoder")),
+        ("ServingCodec", lambda: (
+            _check_all(s["codec"].decode(blobs), raws, names,
+                       "chunked staging: ServingCodec.decode"),
+            _check_all(s["codec"].encode(raws, descs), refs, names,
+                       "chunked staging: ServingCodec.encode"))))
+    out = {}
+    transport.set_h2d_chunk_bytes(PROFILE_CHUNK_BYTES)
+    try:
+        for name, fn in engines:
+            with _staging_counted() as counts:
+                fn()
+            out[name] = dict(staged=counts["staged"],
+                             cut=counts["staged"] - counts["one_shot"])
+            expect(out[name]["cut"] > 0, f"chunked staging: {name} cut no "
+                   "upload into pieces")
+    finally:
+        transport.set_h2d_chunk_bytes(0)
+    counts = ", ".join(f"{k} {v['staged']} ({v['cut']})"
+                       for k, v in out.items())
+    log(f"phase 7: every staging engine at {PROFILE_CHUNK_BYTES} B chunks "
+        f"equals the oracle; staged uploads (cut into pieces): {counts}")
+    return out
+
+
+def phase7_paths(runs, sparse, serve, dev):
+    """The profiles phase's paths: the stage profiles and host-stage
+    experiments of qoipp_tpu_torch/benchmarks and every staging engine
+    chunked, each a path whose launches are counted alone, through
+    _watched as phase 6 runs its paths (a sample of each path's kernel
+    calls held against the plain versions).  Cut for time: profile_r3 on
+    phase 3's corpora (16 RGB, 8 RGBA 1920x1088, encode of all), not its
+    128 and 32; the lane sweep at PROFILE_LANES.  Must launch and hold
+    PROFILE_NEEDS.  Returns (its counts, {kernel: the shapes held}, every
+    profile's and experiment's result)."""
+    from qoipp_tpu_torch.benchmarks import (
+        expt_boundary2l, expt_compact, expt_enc_lanes, expt_h2d_chunks,
+        expt_table_stack, profile_bucket_decode, profile_packed_decode,
+        profile_packed_encode, profile_r3)
+
+    t_phase = time.perf_counter()
+    phase, held, out = {}, {}, {}
+    timed_argv = ["--runs", str(PROFILE_RUNS)]
+
+    def run(label, fn, needs=()):
+        log(f"phase 7: {label}")
+        _watched(7, label, lambda: out.__setitem__(label, fn()), needs,
+                 phase, held)
+
+    for c in runs:
+        run(f"profile_r3 {c['label']} B={len(c['blobs'])}",
+            lambda c=c: profile_r3.run(c["desc"], c["raws"], c["blobs"], dev,
+                                       PROFILE_RUNS, len(c["blobs"])),
+            PROFILE_NEEDS)
+    run("profile_bucket_decode", lambda: profile_bucket_decode.main(
+        timed_argv, device=dev), ("replay", "place_fill"))
+    run("profile_packed_decode", lambda: profile_packed_decode.main(
+        timed_argv, device=dev), ("replay", "place_fill"))
+    run("profile_packed_encode", lambda: profile_packed_encode.main(
+        timed_argv, device=dev), ("compact", "emit"))
+    c = runs[0]
+    q = torch.arange(c["pipe"].qb, device=dev)[None, :]
+    expt_boundary2l.hold(torch.where(
+        q < (c["sizes"] - 14)[:, None],
+        c["streams"][:, 14: 14 + c["pipe"].qb], 0).contiguous(),
+        f"the {c['label']} corpus's regions")
+    run("expt_boundary2l", lambda: expt_boundary2l.main(timed_argv,
+                                                        device=dev))
+    run("expt_table_stack", lambda: expt_table_stack.main(timed_argv,
+                                                          device=dev))
+    run("expt_compact", lambda: expt_compact.main(timed_argv, device=dev),
+        ("compact",))
+    run(f"expt_enc_lanes L={PROFILE_LANES}", lambda: expt_enc_lanes.main(
+        [*timed_argv, "--lanes", *map(str, PROFILE_LANES)], device=dev),
+        ("compact", "emit"))
+    run("expt_h2d_chunks", lambda: expt_h2d_chunks.main(timed_argv,
+                                                        device=dev))
+    run("staging engines", lambda: phase7_staging(serve, sparse, dev),
+        ("replay", "place_fill", "replay_summary", "compact", "emit"))
+    log(f"phase 7: launches over the profiles phase: "
+        f"{ {k: v for k, v in phase.items() if v} }")
+    for name in PROFILE_NEEDS:
+        expect(phase.get(name, 0) > 0, f"the profiles phase never launched "
+               f"{name}")
+        expect(name in held, f"the profiles phase held {name} at no shape")
+    log(f"phase 7: held against their plain versions at the profiles "
+        f"phase's shapes: { {k: len(v) for k, v in held.items()} }")
+    log(f"phase 7: its paths took {time.perf_counter() - t_phase:.1f} s "
+        f"(cut: profile_r3 on phase 3's corpora, not B=128 and 32; the "
+        f"lane sweep at L in {PROFILE_LANES})")
+    return phase, held, out
+
+
+def phase7_child(path):
+    """The profiles phase in a process of its own: phase 3's corpora made
+    again, phase7_paths, its result pickled to ``path``."""
+    dev = torch.device("cuda")
+    runs = phase3_prepare(dev)
+    sparse = phase3_prepare_split(runs, dev)[0]
+    serve = phase3_prepare_serving(dev)
+    serve["packed"] = dict(
+        dec=packed_lanes.PackedDecoder(lane_bytes=PACKED_LANE_BYTES,
+                                       device=dev),
+        enc=packed_lanes.PackedEncoder(lane_px=PACKED_LANE_PX, device=dev))
+    result = phase7_paths(runs, sparse, serve, dev)
+    with open(path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def phase7_profiles(totals):
+    """The profiles phase, run by a fresh process (phase7_child): in this
+    long process torch.profiler drops device events (a stage's launches
+    read x.5 over two traced calls) and at times sees none.  Adds its
+    counts to ``totals``; returns (its counts, {kernel: the shapes
+    held})."""
+    t0 = time.perf_counter()
+    log("phase 7: the profiles phase, in a process of its own")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "phase7.pkl"
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; "
+             f"chip_smoke.phase7_child({str(path)!r})"],
+            cwd=Path(__file__).resolve().parent, timeout=900)
+        expect(proc.returncode == 0, f"the profiles phase's process exited "
+               f"{proc.returncode}")
+        with open(path, "rb") as f:  # written by phase7_child above
+            phase, held, _ = pickle.load(f)
+    for name, n in phase.items():
+        totals[name] = totals.get(name, 0) + n
+    log(f"phase 7: the profiles phase took {time.perf_counter() - t0:.1f} s"
+        " with its process's start")
     return phase, held
 
 
@@ -2487,14 +2719,16 @@ def main():
                    d.width * d.height / 1e6, card)
     phase5_serving_times(serve, card)
     phase5_packed_times(serve, card)
-    tools, tools_held = phase6_tools(runs[0], dev, launches)
+    later = (("tools_launches", *phase6_tools(runs[0], dev, launches)),
+             ("profiles_launches", *phase7_profiles(launches)))
     for row in rows:
-        row["tools_launches"] = tools.get(row["name"], 0)
-        row["launches"] += row["tools_launches"]
-        shapes = tools_held.get(row["name"], [])
-        row.setdefault("held_at", []).extend(shapes)
-        row["max_abs_err"] = max([row["max_abs_err"]] + [
-            h["max_abs_err"] for h in shapes])
+        for key, counts, held in later:
+            row[key] = counts.get(row["name"], 0)
+            row["launches"] += row[key]
+            shapes = held.get(row["name"], [])
+            row.setdefault("held_at", []).extend(shapes)
+            row["max_abs_err"] = max([row["max_abs_err"]] + [
+                h["max_abs_err"] for h in shapes])
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

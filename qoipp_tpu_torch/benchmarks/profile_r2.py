@@ -36,8 +36,8 @@ from . import check_timing, timed_ms
 from ..convert import resolve_device
 from ..kernels.selfcheck import TOLERANCE, max_abs_err
 from ..models.pipeline import BatchPipeline
-from ..ops import boundary, decode as dec_ops, place_kernel, probes
-from ..ops import replay_kernel as rk
+from ..ops import probes
+from .stages import decode_stages
 from ..utils.corpus import make_corpus
 
 W, H = 1920, 1088  # the script's image size
@@ -68,27 +68,11 @@ def stage_profile(pipe, streams, sizes, runs: int) -> dict:
                          device=streams.device)[None, :]
         return torch.where(q < (sizes - 14)[:, None], regions, 0)
 
-    regions = regions_of()
-
-    def boundary_of():
-        return boundary.analyze_region_batch(
-            regions[:, : pipe.qb].contiguous(), sizes - 22, pipe.n_px)
-
-    info = boundary_of()
-
-    def fields_of():
-        meta, val = dec_ops.fields_dense_batch(regions, info["real"])
-        return meta.T, val.T  # lane-major, as replay_inputs gives them
-
-    meta_t, val_t = fields_of()
-    emits = rk.replay_batch(meta_t, val_t).T.contiguous()
-    stages = {
-        "regions": regions_of, "boundary": boundary_of, "fields": fields_of,
-        "replay": lambda: rk.replay_batch(meta_t, val_t),
-        "place": lambda: place_kernel.place_fill(info["pix_before"], emits,
-                                                 pipe.n_cap),
-        "decode_packed": lambda: pipe.decode_packed(streams, sizes)}
-    _expect(torch.equal(stages["place"](), stages["decode_packed"]()),
+    st, info, placed = decode_stages(regions_of(), sizes - 22, pipe.n_px,
+                                     pipe.qb, pipe.n_cap)
+    stages = dict(regions=regions_of, **st, decode_packed=lambda:
+                  pipe.decode_packed(streams, sizes))
+    _expect(torch.equal(placed, stages["decode_packed"]()),
             "the decode stages differ from decode_packed")
     ms = {k: _time(fn, runs) for k, fn in stages.items()}
     tc = info["total_chunks"].cpu().numpy()

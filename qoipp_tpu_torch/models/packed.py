@@ -39,6 +39,7 @@ from ..ops import replay_kernel as rk
 from ..ops.compact_kernel import BLK as CBLK
 from ..ops.emit_kernel import WIN as EMIT_WIN
 from ..utils.transfer import upload
+from ..utils.transport import stage_h2d
 
 
 def _round_up(n: int, m: int) -> int:
@@ -220,10 +221,11 @@ class PackedDecoder:
 
     def stage_plan(self, plan):
         """Upload a plan_and_pack host plan to the decoder's device
-        (pinned memory, asynchronous copies)."""
+        (pinned memory, asynchronous copies; the regions through
+        stage_h2d)."""
         regions, seg, chunks_sizes, where, descs, qb, n_cap, l_total = plan
         dev = self.device
-        return (upload(regions, dev), upload(seg.astype(np.int64), dev),
+        return (stage_h2d(regions, dev), upload(seg.astype(np.int64), dev),
                 upload(chunks_sizes, dev), where, descs, qb, n_cap, l_total)
 
     @staticmethod
@@ -465,10 +467,11 @@ class PackedEncoder:
 
     def stage_plan(self, plan):
         """Upload a plan_and_pack host plan (and its descs) to the
-        encoder's device (pinned memory, asynchronous copies)."""
+        encoder's device (pinned memory, asynchronous copies, through
+        stage_h2d)."""
         packed, flags, where, caps, descs = plan
-        return (upload(packed.view(np.int32), self.device),
-                upload(flags, self.device), where, caps, descs)
+        return (stage_h2d(packed.view(np.int32), self.device),
+                stage_h2d(flags, self.device), where, caps, descs)
 
     @staticmethod
     def dispatch_staged(staged):

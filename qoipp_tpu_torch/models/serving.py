@@ -27,7 +27,7 @@ import torch
 
 from ..common import Desc
 from ..convert import resolve_device, words_to_numpy
-from ..utils.transfer import upload
+from ..utils.transport import stage_h2d
 from .packed import (PackedDecoder, PackedEncoder, _parse_streams,
                      _unpack_pixels_np)
 from .scheduler import BucketedCodec, _pad_b
@@ -305,7 +305,8 @@ class ServingCodec:
                              np.uint8)
             for j, i in enumerate(idxs):
                 batch[j] = raws[i]
-            bucket_staged.append((idxs, pipe, upload(batch, self.device), d))
+            bucket_staged.append((idxs, pipe, stage_h2d(batch, self.device),
+                                  d))
         return len(raws), packed_staged, bucket_staged
 
     def encode_dispatch_staged(self, staged):

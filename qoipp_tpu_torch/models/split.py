@@ -43,6 +43,7 @@ from ..ops import place_kernel
 from ..ops.bitops import START_PIXEL_PACKED
 from ..ops.decode import seam_fixpoint, true_init_row
 from ..utils.transfer import upload
+from ..utils.transport import stage_h2d
 from .packed import (_bucket_mult, _parse_streams, _round_up,
                      _unpack_pixels_np)
 
@@ -213,11 +214,11 @@ class SplitDecoder:
 
     def stage_plan(self, plan):
         """Upload a plan_and_pack host plan to the decoder's device (pinned
-        memory, asynchronous copies)."""
+        memory, asynchronous copies; the regions through stage_h2d)."""
         (regions, heads, chunks_sizes, px_budgets, where, descs, qb, n_cap,
          max_chain, qc) = plan
         dev = self.device
-        return (upload(regions, dev), upload(heads, dev),
+        return (stage_h2d(regions, dev), upload(heads, dev),
                 upload(chunks_sizes, dev), upload(px_budgets, dev),
                 max_chain, where, descs, qb, n_cap, qc)
 

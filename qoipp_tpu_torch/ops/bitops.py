@@ -26,6 +26,11 @@ def unpack_channel(p, c: int):
     return (p >> (8 * c)) & 0xFF
 
 
+def unpack_rgba(p):
+    """The four channels (r, g, b, a) of int32 words, each in [0, 255]."""
+    return tuple(unpack_channel(p, c) for c in range(4))
+
+
 def hash6(p):
     """QOI running-index hash (3r + 5g + 7b + 11a) % 64 of packed words."""
     return (

@@ -74,6 +74,11 @@ def chunk_starts_batch(regions):
     return phases.reshape(b, qb) == 0
 
 
+def chunk_starts(region):
+    """Single-stream chunk_starts_batch: (Qb,) uint8 -> (Qb,) bool."""
+    return chunk_starts_batch(region[None])[0]
+
+
 def analyze_region_batch(regions, chunks_sizes, n_px: int):
     """Batched boundary analysis.
 

@@ -45,6 +45,7 @@ from ..common import (
 from ..convert import resolve_device
 from ..models.packed import _round_up
 from ..models.split import _compact_cap, _decode_window_lanes
+from ..utils.transport import stage_h2d
 from . import boundary, place_kernel
 from . import replay_kernel as rk
 from .bitops import hash6, packed_to_pixels, pixels_to_packed
@@ -149,7 +150,7 @@ class DeviceStreamDecoder:
         lanes = regions.shape[0]
         dev = self.device
         packed, n_pix, consumed, prev, seen, rounds = _decode_window_lanes(
-            torch.from_numpy(regions).to(dev),
+            stage_h2d(regions, dev),
             torch.from_numpy(seg_lens).to(dev), self._prev, self._seen,
             lanes, qb=qseg, n_cap=n_cap, qc=qc)
         self.windows.append(dict(lanes=nseg, qb=qseg, qc=qc, n_cap=n_cap,

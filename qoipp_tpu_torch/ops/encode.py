@@ -178,12 +178,26 @@ def chunk_positions(packed, n_px: int):
     return posflag, keep, fb
 
 
-def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int):
+def chunk_table(pk_c, pf_c, counts, fb: int):
+    """Stage 3's table scan: each compacted chunk row's same-hash
+    predecessor word (_last_same_hash_value over the differing rows)."""
+    rows = torch.arange(pk_c.shape[1], dtype=torch.int32,
+                        device=pk_c.device)[None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
+    return _last_same_hash_value(pk_c, hash6(pk_c), nq_c)
+
+
+def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
+                    table_val=None):
     """Stage 3.  Compacted chunk rows (pixel, position|flag), (B, chunk_cap)
     int32, and their counts -> (off, tlo, thn, total_len): per-row byte
     offsets and 6-byte templates (thn bits 16+ hold the byte count), with
     the trailing run, end marker and a 1-byte sentinel appended at counts,
-    and each stream's length (sentinel excluded)."""
+    and each stream's length (sentinel excluded).  The same-hash scan runs
+    here unless table_val, chunk_table's result, is given (a stage
+    profile times the scan on its own)."""
     b, chunk_cap = pk_c.shape
     dev = pk_c.device
     rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
@@ -203,7 +217,8 @@ def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int):
     gap = torch.where(valid_c, pos - pos_prev - 1, 0)
 
     h = hash6(pk_c)
-    table_val = _last_same_hash_value(pk_c, h, nq_c)
+    if table_val is None:
+        table_val = _last_same_hash_value(pk_c, h, nq_c)
     own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, channels)
 
     # a differing chunk flushes its pending run first (gap in [1, 61]); a
@@ -441,12 +456,31 @@ def lane_positions(packed, flags):
     return packed_aug, posflag, keep, bits
 
 
-def lane_templates(pk_c, pf_c, counts, bits):
+def lane_table(pk_c, pf_c, counts, bits):
+    """Stage 3's table scan of the lane encoder: each compacted row's
+    same-hash predecessor word inside its stream
+    (_last_same_hash_value_seg, streams cut at the tail1 rows)."""
+    _, b_t1, b_nq = bits
+    rows = torch.arange(pk_c.shape[1], dtype=torch.int32,
+                        device=pk_c.device)[None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    pf_c = torch.where(valid_c, pf_c, 0)
+    # a chunk row's stream: the tail1 rows strictly before it
+    t1_i = (((pf_c >> b_t1) & 1) == 1).to(torch.int32)
+    seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
+    nq_c = valid_c & (((pf_c >> b_nq) & 1) == 1)
+    return _last_same_hash_value_seg(pk_c, hash6(pk_c), nq_c, seg_c)
+
+
+def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     """Stage 3 of the lane encoder: the compacted rows (L, chunk_cap) int32
     and their counts -> (off, tlo, thn, incl, t1, total_len): each row's
     byte offset and 6-byte template (thn bits 16+ the byte count), with a
     1-byte sentinel row at counts; incl = off + the row's bytes, which is
-    a stream's exclusive end at its tail1 rows (t1); each lane's bytes."""
+    a stream's exclusive end at its tail1 rows (t1); each lane's bytes.
+    The segmented same-hash scan runs here unless table_val, lane_table's
+    result, is given (a stage profile times the scan on its own)."""
     l, chunk_cap = pk_c.shape
     b_t0, b_t1, b_nq = bits
     rows = torch.arange(chunk_cap, dtype=torch.int32, device=pk_c.device)[
@@ -461,9 +495,6 @@ def lane_templates(pk_c, pf_c, counts, bits):
     is_tail = t0 | t1
     run_row = valid_c & ~nq_c & ~is_tail  # RUN-62 flush rows
 
-    # a chunk row's stream: the tail1 rows strictly before it
-    t1_i = t1.to(torch.int32)
-    seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
     # prev pixel: the previous chunk row's, the start pixel on a stream's
     # first row (row 0, or the row after a tail1)
     after_t1 = _shift_right(t1, 1, True)
@@ -475,7 +506,11 @@ def lane_templates(pk_c, pf_c, counts, bits):
     # RGB stream packs alpha 255 everywhere, so the RGBA test never fires
     # for it and needs no channel count
     h = hash6(pk_c)
-    table_val = _last_same_hash_value_seg(pk_c, h, nq_c, seg_c)
+    if table_val is None:
+        # a chunk row's stream: the tail1 rows strictly before it
+        t1_i = t1.to(torch.int32)
+        seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
+        table_val = _last_same_hash_value_seg(pk_c, h, nq_c, seg_c)
     own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, 4)
     run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
     has_run = torch.where(nq_c, gap > 0, run_row)

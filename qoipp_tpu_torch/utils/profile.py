@@ -79,16 +79,16 @@ def busy_us(intervals) -> float:
 def profile_path(fn, calls: int = 3, warmup: int = 3) -> dict:
     """Device busy ms, span ms and idle share per call of fn, busy ms and
     launches per call by kernel group, and the calls traced.  The
-    profiler at times keeps no device event of a path of a few short
-    launches: such a path is traced again over ten times the calls, and
-    raises if it shows no device activity then either."""
+    profiler at times keeps no device event of a trace (in a long process
+    more often): such a path is traced again, twice, over ten times the
+    calls, and raises if it shows no device activity then either."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for calls in (calls, 10 * calls):
+    for calls in (calls, 10 * calls, 10 * calls):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):

@@ -23,7 +23,12 @@ exchange staged through host memory): dp decode and encode, sp decode
 tests/torch_parallel_jobs.py, and the dry run, against the oracle; the
 scan engine's decode_bytes on the card against its CPU result.  The
 fuzzer's eight targets at three rounds each, the ingest example at B=2,
-and every tool refusing the card where torch reports none.
+and every tool refusing the card where torch reports none.  Chunked
+staging (utils/transport.stage_h2d at 256-byte chunks) through every
+engine that stages, the overlapped serving dispatch's side stream among
+them, against its unchunked run and the oracle; the two-level boundary
+scan against the shipped one; and each stage profile and host-stage
+experiment of qoipp_tpu_torch/benchmarks at a small size, timed.
 Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
@@ -759,3 +764,152 @@ def test_tools_refuse_cuda_without_card(cuda, monkeypatch, tool, argv):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main(argv)
     assert kernels.launch_counts() == before
+
+
+def _noise_items(seed, n=8):
+    """n noise images, 40 + 8k x 30, RGB and RGBA: (raw, desc, blob)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        d = Desc(40 + 8 * k, 30, Channels.RGB if k % 2 else Channels.RGBA)
+        raw = rng.integers(0, 256, d.width * d.height * int(d.channels),
+                           np.uint8)
+        out.append((raw, d, oracle.encode(raw, d)[0]))
+    return out
+
+
+def _staging_engines():
+    """name -> (module whose stage_h2d the engine calls, run(corpus, dev)
+    -> (outputs, the oracle's))."""
+    from qoipp_tpu_torch.models import packed, serving, split
+    from qoipp_tpu_torch.ops import device_stream
+
+    def split_run(c, dev):
+        dec = split.SplitDecoder(lanes=8, device=dev)
+        return ([dec.gather(*dec.decode_to_device([b])[:3])[0]
+                 for _, _, b in c[:2]], [r for r, _, _ in c[:2]])
+
+    def overlapped(c, dev):
+        codec = serving.ServingCodec(pack_lane_bytes=8 << 10,
+                                     min_len=1 << 12, device=dev)
+        return (codec.decode_finish(codec.decode_dispatch_overlapped(
+            [b for _, _, b in c])), [r for r, _, _ in c])
+
+    def bucket(c, dev):
+        c = c[5:] * 2  # past pack_lane_px: two images a geometry bucket
+        return (serving.ServingCodec(pack_lane_px=64, min_len=1 << 12,
+                                     device=dev).encode(
+            [r for r, _, _ in c], [d for _, d, _ in c]),
+            [b for _, _, b in c])
+
+    return {
+        "split": (split, split_run),
+        "packed decode": (packed, lambda c, dev: (packed.PackedDecoder(
+            lane_bytes=16 << 10, device=dev).decode([b for _, _, b in c]),
+            [r for r, _, _ in c])),
+        "packed encode": (packed, lambda c, dev: (packed.PackedEncoder(
+            lane_px=4096, device=dev).encode([r for r, _, _ in c],
+                                             [d for _, d, _ in c]),
+            [b for _, _, b in c])),
+        "serving bucket": (serving, bucket),
+        "serving overlapped (side stream)": (packed, overlapped),
+        "device stream": (device_stream, lambda c, dev: (
+            [device_stream.stream_decode(b, 2048, device=dev)[0]
+             for _, _, b in c[:2]], [r for r, _, _ in c[:2]])),
+    }
+
+
+@pytest.mark.parametrize("engine", [
+    "split", "packed decode", "packed encode", "serving bucket",
+    "serving overlapped (side stream)", "device stream"])
+def test_chunked_staging_on_card(cuda, monkeypatch, engine):
+    """Each engine's staged upload at 256-byte chunks on the card (pinned
+    pieces into one device tensor): equal to its unchunked run and the
+    oracle, at least one upload cut into pieces; the overlapped serving
+    dispatch stages on a side stream."""
+    from qoipp_tpu_torch.utils import transport
+
+    module, run = _staging_engines()[engine]
+    corpus = _noise_items(5)
+    want, ref = run(corpus, cuda)
+    calls = dict(staged=0, one_shot=0)
+    real_stage, real_upload = module.stage_h2d, transport.upload
+
+    def stage(*a, **k):
+        calls["staged"] += 1
+        return real_stage(*a, **k)
+
+    def upload(*a, **k):
+        calls["one_shot"] += 1
+        return real_upload(*a, **k)
+
+    monkeypatch.setattr(module, "stage_h2d", stage)
+    monkeypatch.setattr(transport, "upload", upload)
+    transport.set_h2d_chunk_bytes(256)
+    try:
+        got, _ = run(corpus, cuda)
+    finally:
+        transport.set_h2d_chunk_bytes(0)
+    assert calls["staged"] > calls["one_shot"]
+    assert len(got) == len(want) == len(ref)
+    for a, b, c in zip(want, got, ref):
+        assert np.array_equal(a, b) and np.array_equal(b, c)
+
+
+def test_stage_h2d_on_card(cuda):
+    from qoipp_tpu_torch.utils import transport
+
+    host = np.random.default_rng(2).integers(0, 256, (1000, 96), np.uint8)
+    transport.set_h2d_chunk_bytes(4096)
+    try:
+        got = transport.stage_h2d(host, cuda)
+    finally:
+        transport.set_h2d_chunk_bytes(0)
+    assert got.device.type == "cuda"
+    assert np.array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.parametrize("b,qb", [(2, 128), (3, 512), (2, 37 * 128),
+                                  (8, 2048 * 128)])
+def test_two_level_boundary_scan_on_card(cuda, b, qb):
+    from qoipp_tpu_torch.benchmarks import expt_boundary2l
+    from qoipp_tpu_torch.ops import boundary
+
+    reg = torch.from_numpy(expt_boundary2l._rand_streams(
+        np.random.default_rng(qb), min(b, 2), qb)).to(cuda).repeat(b, 1)[:b]
+    assert torch.equal(expt_boundary2l.chunk_starts_batch_2l(reg),
+                       boundary.chunk_starts_batch(reg))
+
+
+@pytest.fixture
+def small_corpus(tmp_path):
+    for i, (ch, w, h) in enumerate([(3, 48, 40), (4, 48, 40), (3, 64, 48),
+                                    (4, 80, 40)]):
+        for j, blob in enumerate(make_corpus(2, w, h, seed=i,
+                                             channels=ch)[2]):
+            (tmp_path / f"img{i}_{j}.qoi").write_bytes(blob.tobytes())
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("profile_r3", ["--batch", "4", "--encode-batch", "2", "--width",
+                    "320", "--height", "200"]),
+    ("profile_bucket_decode", ["--cap-kb", "0", "--corpus", "{}"]),
+    ("profile_packed_decode", ["--lane-kb", "64", "--corpus", "{}"]),
+    ("profile_packed_encode", ["--lane-px", "4096", "--corpus", "{}"]),
+    ("expt_boundary2l", ["--batch", "8", "--qb", "65536"]),
+    ("expt_table_stack", []),
+    ("expt_compact", ["--lanes", "2", "--rows", "65536", "--cap", "40960"]),
+    ("expt_enc_lanes", ["--lanes", "2", "4", "--lane-px", "4096",
+                        "--corpus", "{}"]),
+    ("expt_h2d_chunks", ["--mb", "4", "--pieces", "1", "4", "64"]),
+])
+def test_profile_script_on_card(cuda, small_corpus, module, argv):
+    """Each stage profile and experiment at a small size on the card, timed
+    (--runs 2): its holds pass and it returns times."""
+    import importlib
+
+    mod = importlib.import_module(f"qoipp_tpu_torch.benchmarks.{module}")
+    out = mod.main([a.format(small_corpus) for a in argv] + ["--runs", "2"],
+                   device=cuda)
+    assert out
