@@ -1,0 +1,8 @@
+"""decode_mpix_s (MPix/s): every pixel decoded and delivered in the
+window, over the window's time."""
+
+from portbench.readers import mpix_s
+
+
+def read(rec):
+    return mpix_s(rec, "decode")

@@ -1,0 +1,9 @@
+"""torch_passes_ms.encode (ms): device time a traced call of every kernel that
+is neither one of the program's own nor a copy or fill: the encode torch
+passes."""
+
+from portbench.readers import torch_passes_ms
+
+
+def read(rec):
+    return torch_passes_ms(rec, "encode")
