@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.transfer import fetch
+
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: None means "cuda", which raises
@@ -32,8 +34,9 @@ def words_to_torch(words, device=None) -> torch.Tensor:
 
 
 def words_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> uint32 numpy array, bit for bit."""
-    return t.detach().to("cpu", torch.int32).contiguous().numpy().view(np.uint32)
+    """int32 tensor -> uint32 numpy array, bit for bit; one
+    ``transfer.fetch``."""
+    return fetch(t.detach().to(torch.int32).contiguous())[0].view(np.uint32)
 
 
 def _shaped(name, arr, shape):

@@ -38,7 +38,8 @@ from ..ops import place_kernel
 from ..ops import replay_kernel as rk
 from ..ops.compact_kernel import BLK as CBLK
 from ..ops.emit_kernel import WIN as EMIT_WIN
-from ..utils.transfer import upload
+from ..utils import tracing
+from ..utils.transfer import fetch, read_flag, upload
 from ..utils.transport import stage_h2d
 
 
@@ -237,6 +238,7 @@ class PackedDecoder:
                                n_cap=n_cap, l_total=l_total)
         return packed, where, descs
 
+    @tracing.traced("host.plan")
     def plan_and_pack(self, blobs: Sequence):
         """Host staging: plan balanced lanes and build the device inputs.
         Returns (regions (L_ne, qb + 8) uint8, the nonempty lanes only;
@@ -344,6 +346,7 @@ class PackedEncoder:
         self.lane_counts = lane_counts
         self.device = resolve_device(device)
 
+    @tracing.traced("host.plan")
     def plan_and_pack(self, raws: Sequence[np.ndarray],
                       descs: Sequence[Desc]):
         """Host staging: plan balanced lanes and build the device inputs.
@@ -489,29 +492,32 @@ class PackedEncoder:
     def finish(dispatched) -> List[np.ndarray]:
         """Fetch and slice a dispatch_staged result into complete QOI
         streams, submission order; encodes again at the safe caps where a
-        lane overflowed the first ones."""
+        lane overflowed the first ones, which counts one
+        ``packed_recodes``."""
         out, ends, nseg, ok, staged, where, descs = dispatched
-        if not bool(ok.all()):
+        if not read_flag(ok.all()):
+            tracing.count("packed_recodes")
             packed_d, flags_d, _, caps, _ = staged
             out, ends, nseg, ok = enc_ops.encode_lanes_checked(
                 packed_d, flags_d, chunk_cap=caps["safe_chunk"],
                 out_cap=caps["safe_out"], ends_cap=caps["ends_cap"])
-            if not bool(ok.all()):
+            if not read_flag(ok.all()):
                 raise AssertionError(
                     "packed encode overflowed the safe caps, which are "
                     "sized from the worst size and cannot overflow")
         # the ends first (small), then only each lane's used bytes
-        ends = ends.cpu().numpy()
-        nseg_h = nseg.cpu().numpy()
+        ends, nseg_h = fetch(ends, nseg)
         used = max((int(ends[Li, nseg_h[Li] - 1])
                     for Li in range(ends.shape[0]) if nseg_h[Li] > 0),
                    default=1)
-        out = out[:, : _round_up(max(used, 1), 128)].cpu().numpy()
+        (out,) = fetch(out[:, : _round_up(max(used, 1), 128)])
         results: List[np.ndarray] = []
-        for i, d in enumerate(descs):
-            Li, k = where[i]
-            start = int(ends[Li, k - 1]) if k else 0
-            stop = int(ends[Li, k])
-            header = np.frombuffer(write_header(d), dtype=np.uint8)
-            results.append(np.concatenate([header, out[Li, start:stop]]))
+        with tracing.span("host.unpack"):
+            for i, d in enumerate(descs):
+                Li, k = where[i]
+                start = int(ends[Li, k - 1]) if k else 0
+                stop = int(ends[Li, k])
+                header = np.frombuffer(write_header(d), dtype=np.uint8)
+                results.append(np.concatenate([header,
+                                               out[Li, start:stop]]))
         return results

@@ -28,6 +28,7 @@ from ..ops import place_kernel
 from ..ops import replay_kernel as rk
 from ..ops.bitops import packed_to_pixels, pixels_to_packed
 from ..ops.encode import _round_up
+from ..utils import tracing
 
 
 class BatchPipeline:
@@ -76,7 +77,15 @@ class BatchPipeline:
             device=self.device)
 
     def _to_device(self, x, dtype):
-        return torch.as_tensor(x).to(device=self.device, dtype=dtype)
+        t = torch.as_tensor(x)
+        if isinstance(x, torch.Tensor) and (x.device.type != "cpu"
+                                            or self.device.type == "cpu"):
+            return t.to(device=self.device, dtype=dtype)
+        # a host array: a plain (pageable) copy
+        with tracing.span("host.upload"):
+            tracing.count("h2d_bytes", t.nbytes)
+            tracing.count("h2d_pageable_bytes", t.nbytes)
+            return t.to(device=self.device, dtype=dtype)
 
     # -- decode ------------------------------------------------------------
 
@@ -181,6 +190,7 @@ class BatchPipeline:
         via one C pass of the native oracle."""
         return oracle.pack_files(list(paths), self.l_cap)
 
+    @tracing.traced("host.pack_streams")
     def pack_streams(self, blobs) -> Tuple[np.ndarray, np.ndarray]:
         """List of qoi byte strings/arrays -> ((B, l_cap) u8, (B,) i32)."""
         b = len(blobs)
@@ -201,5 +211,6 @@ class BatchPipeline:
 
 
 def _unpack_images(packed, height: int, width: int, channels: int):
-    return packed_to_pixels(packed, channels).reshape(
-        packed.shape[0], height, width, channels)
+    with tracing.span("decode.unpack"):
+        return packed_to_pixels(packed, channels).reshape(
+            packed.shape[0], height, width, channels)

@@ -17,7 +17,7 @@ import numpy as np
 
 from ..common import Channels, Desc
 from ..convert import resolve_device
-from ..utils.transfer import upload
+from ..utils.transfer import fetch, upload
 from .packed import _as_arrays
 from .pipeline import BatchPipeline, _unpack_images
 
@@ -107,8 +107,8 @@ class BucketedCodec:
                        np.uint8)
         for idxs, pipe, streams, sizes in self.prepare(blobs):
             packed = pipe.decode_packed(streams, sizes)[:, : pipe.n_px]
-            imgs = _unpack_images(packed, self.desc.height, self.desc.width,
-                                  ch).cpu().numpy()
+            (imgs,) = fetch(_unpack_images(packed, self.desc.height,
+                                           self.desc.width, ch))
             out[idxs] = imgs[: len(idxs)]
         return out
 
@@ -141,10 +141,9 @@ class BucketedCodec:
                 streams, lengths, ok = pipe.encode_raw_checked(
                     upload(batch, self.device))
                 # the lengths first (small), then only the used bytes
-                lengths = lengths.cpu().numpy()
-                okh = ok.cpu().numpy()
+                lengths, okh = fetch(lengths, ok)
                 used = int(lengths[: len(idxs)].max(initial=1))
-                streams = streams[:, : -(-used // 128) * 128].cpu().numpy()
+                (streams,) = fetch(streams[:, : -(-used // 128) * 128])
                 for j, i in enumerate(idxs):
                     if okh[j]:
                         out[i] = streams[j, : lengths[j]].copy()

@@ -27,6 +27,8 @@ import torch
 
 from ..common import Desc
 from ..convert import resolve_device, words_to_numpy
+from ..utils import tracing
+from ..utils.transfer import fetch, read_flag
 from ..utils.transport import stage_h2d
 from .packed import (PackedDecoder, PackedEncoder, _parse_streams,
                      _unpack_pixels_np)
@@ -131,6 +133,7 @@ class ServingCodec:
         raw pixels (each stream's channels), submission order."""
         return self.decode_finish(self.decode_dispatch(blobs))
 
+    @tracing.traced("host.route")
     def _decode_routes(self, blobs: Sequence):
         """(arrays, packed tiers, split groups) of a decode request."""
         arrs, descs = _parse_streams(blobs)
@@ -239,15 +242,18 @@ class ServingCodec:
         output) and cut and unpack each stream's pixels on the host."""
         n, packed_parts, split_parts = dispatched
         results: List[Optional[np.ndarray]] = [None] * n
-        for tier_idxs, (dev, where, pdescs) in packed_parts:
-            host = words_to_numpy(dev)
-            for i, (Li, poff), d in zip(tier_idxs, where, pdescs):
-                results[i] = _unpack_pixels_np(
-                    host[Li, poff: poff + d.width * d.height],
-                    int(d.channels))
-        for idxs, (dev, where, sdescs, _rounds) in split_parts:
-            for i, px in zip(idxs, SplitDecoder.gather(dev, where, sdescs)):
-                results[i] = px
+        with tracing.span("host.unpack"):
+            for tier_idxs, (dev, where, pdescs) in packed_parts:
+                host = words_to_numpy(dev)
+                for i, (Li, poff), d in zip(tier_idxs, where, pdescs):
+                    results[i] = _unpack_pixels_np(
+                        host[Li, poff: poff + d.width * d.height],
+                        int(d.channels))
+            # the rounds went into split_rounds where the route ran them
+            for idxs, (dev, where, sdescs, _rounds) in split_parts:
+                for i, px in zip(idxs,
+                                 SplitDecoder.gather(dev, where, sdescs)):
+                    results[i] = px
         return results  # type: ignore[return-value]
 
     # -- encode -------------------------------------------------------------
@@ -258,6 +264,7 @@ class ServingCodec:
         complete QOI streams, submission order."""
         return self.encode_finish(self.encode_dispatch(raws, descs))
 
+    @tracing.traced("host.route")
     def _encode_plan(self, raws: Sequence[np.ndarray],
                      descs: Sequence[Desc]):
         """Host planning shared by the encode paths: the packable images in
@@ -301,10 +308,11 @@ class ServingCodec:
             codec = self._bucket(d)
             worst = (int(d.channels) + 1) * d.width * d.height + 22
             pipe = codec._pipe(codec._bucket_len(worst))
-            batch = np.zeros((_pad_b(len(idxs)), raws[idxs[0]].size),
-                             np.uint8)
-            for j, i in enumerate(idxs):
-                batch[j] = raws[i]
+            with tracing.span("host.plan"):
+                batch = np.zeros((_pad_b(len(idxs)), raws[idxs[0]].size),
+                                 np.uint8)
+                for j, i in enumerate(idxs):
+                    batch[j] = raws[i]
             bucket_staged.append((idxs, pipe, stage_h2d(batch, self.device),
                                   d))
         return len(raws), packed_staged, bucket_staged
@@ -330,14 +338,15 @@ class ServingCodec:
             for i, stream in zip(tier, self._enc_pack.finish(disp)):
                 results[i] = stream
         for idxs, streams, lengths, ok, d in bucket_parts:
-            lengths = lengths.cpu().numpy()
+            (lengths,) = fetch(lengths)
             # the bucket is the worst size, so a tripped flag is a fault
-            if not bool(ok[: len(idxs)].all()):
+            if not read_flag(ok[: len(idxs)].all()):
                 raise AssertionError(
                     "bucketed encode overflowed its worst-size bucket")
             used = int(lengths[: len(idxs)].max(initial=1))
-            host = streams[:, : min(streams.shape[1],
-                                    -(-used // 8192) * 8192)].cpu().numpy()
-            for j, i in enumerate(idxs):
-                results[i] = host[j, : lengths[j]].copy()
+            (host,) = fetch(streams[:, : min(streams.shape[1],
+                                             -(-used // 8192) * 8192)])
+            with tracing.span("host.unpack"):
+                for j, i in enumerate(idxs):
+                    results[i] = host[j, : lengths[j]].copy()
         return results  # type: ignore[return-value]

@@ -42,6 +42,7 @@ from ..ops import decode as dec_ops
 from ..ops import place_kernel
 from ..ops.bitops import START_PIXEL_PACKED
 from ..ops.decode import seam_fixpoint, true_init_row
+from ..utils import tracing
 from ..utils.transfer import upload
 from ..utils.transport import stage_h2d
 from .packed import (_bucket_mult, _parse_streams, _round_up,
@@ -190,6 +191,7 @@ class SplitDecoder:
         return self.gather(packed, where, descs)
 
     @staticmethod
+    @tracing.traced("host.unpack")
     def gather(packed, where, descs) -> List[np.ndarray]:
         """decode_to_device's lanes -> each stream's raw pixels (numpy
         uint8), one host fetch."""
@@ -223,13 +225,18 @@ class SplitDecoder:
                 max_chain, where, descs, qb, n_cap, qc)
 
     def dispatch_staged(self, staged):
+        """Decode a stage_to_device plan; returns (device pixels, where,
+        descs, rounds), the pixels left on the device, and counts the
+        fixpoint's rounds as ``split_rounds``."""
         (regions, heads, chunks_sizes, px_budgets, max_chain, where, descs,
          qb, n_cap, qc) = staged
         packed, rounds = _decode_split_lanes(
             regions, heads, chunks_sizes, px_budgets, max_chain, qb=qb,
             n_cap=n_cap, qc=qc)
+        tracing.count("split_rounds", rounds)
         return packed, where, descs, rounds
 
+    @tracing.traced("host.plan")
     def plan_and_pack(self, blobs: Sequence):
         """Host staging: native chunk-walk split per stream, one segment
         per lane.  Returns (regions (L, qb+8) u8, heads (L,) bool,

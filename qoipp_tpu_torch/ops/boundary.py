@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
+
 BLOCK = 128  # bytes per phase block
 
 
@@ -79,6 +81,7 @@ def chunk_starts(region):
     return chunk_starts_batch(region[None])[0]
 
 
+@tracing.traced("decode.boundary")
 def analyze_region_batch(regions, chunks_sizes, n_px: int):
     """Batched boundary analysis.
 

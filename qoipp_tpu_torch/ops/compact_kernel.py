@@ -15,6 +15,7 @@ import functools
 import torch
 
 from .. import kernels
+from ..utils import tracing
 
 # The JAX kernel's rows per grid step.  The encoder's chunk_cap and `ok`
 # rule are written in it, so it stays to keep those shapes and flags equal.
@@ -48,6 +49,7 @@ def compact_rows_reference(planes, keep, cap: int):
     return tuple(outs), counts
 
 
+@tracing.traced("encode.compact")
 def compact_rows(planes, keep, cap: int):
     """Compact the kept rows of up to four (B, N) int32 planes to the front.
 

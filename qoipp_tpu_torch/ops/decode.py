@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from ..common import Channels, Desc
+from ..utils import tracing
+from ..utils.transfer import read_flag
 from . import boundary
 from . import classify as cls_ops
 from . import replay_kernel as rk
@@ -35,6 +37,7 @@ from .fill import fill_forward
 _U32 = 1 << 32
 
 
+@tracing.traced("decode.fields")
 def fields_dense_batch(regions, real):
     """regions (B, >= qb + 4) uint8, real (B, qb) bool -> (meta, val), both
     (B, qb) int32.
@@ -221,16 +224,21 @@ def seam_fixpoint(meta_t, val_t, heads, max_chain: int, guess, base=None):
     from each chain head, and each round makes at least one more lane of
     every chain exact, so the cap is never what ends the loop.  Returns
     the emits (width, L) of the round that found the fixpoint, the round
-    count, and the state (65,) after the last lane in that round."""
+    count, and the state (65,) after the last lane in that round.  A round
+    is one ``decode.replay`` span and one ``host.sync``; the split route's
+    round count feeds the ``split_rounds`` counter (SplitDecoder.
+    dispatch_staged)."""
     in_p, in_s = guess
     rounds = 0
     while True:
-        emits, out_p, out_s, pupd, swr = rk.replay_batch_summary(
-            meta_t, val_t, in_p, in_s)
-        want_p, want_s, fin = propagate(heads, out_p, out_s, pupd, swr, base)
+        with tracing.span("decode.replay"):
+            emits, out_p, out_s, pupd, swr = rk.replay_batch_summary(
+                meta_t, val_t, in_p, in_s)
+            want_p, want_s, fin = propagate(heads, out_p, out_s, pupd, swr,
+                                            base)
         rounds += 1
         # emits came from in_p/in_s: at the fixpoint they are exact
-        if bool((want_p == in_p).all() & (want_s == in_s).all()):
+        if read_flag((want_p == in_p).all() & (want_s == in_s).all()):
             break
         if rounds >= max_chain + 2:
             break

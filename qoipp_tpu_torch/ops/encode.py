@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .bitops import START_PIXEL_PACKED, hash6, to_int8, unpack_channel
 from .compact_kernel import BLK as CBLK
 from .compact_kernel import compact_rows
@@ -157,6 +158,7 @@ def pack_templates(own_len, own, has_run, run_byte):
     return tlo, thn
 
 
+@tracing.traced("encode.positions")
 def chunk_positions(packed, n_px: int):
     """Stage 1.  packed (B, Nb) int32 -> (posflag, keep, fb): keep marks
     chunk rows (differing pixels and RUN-62 flush points); posflag holds
@@ -189,6 +191,7 @@ def chunk_table(pk_c, pf_c, counts, fb: int):
     return _last_same_hash_value(pk_c, hash6(pk_c), nq_c)
 
 
+@tracing.traced("encode.templates")
 def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
                     table_val=None):
     """Stage 3.  Compacted chunk rows (pixel, position|flag), (B, chunk_cap)
@@ -197,8 +200,10 @@ def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
     the trailing run, end marker and a 1-byte sentinel appended at counts,
     and each stream's length (sentinel excluded).  The same-hash scan runs
     here unless table_val, chunk_table's result, is given (a stage
-    profile times the scan on its own)."""
+    profile times the scan on its own).  Counts B x chunk_cap
+    ``template_rows``."""
     b, chunk_cap = pk_c.shape
+    tracing.count("template_rows", b * chunk_cap)
     dev = pk_c.device
     rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
     valid_c = rows < counts[:, None]
@@ -262,10 +267,12 @@ def _encode_kernel_impl(packed, n_px: int, header, channels: int,
     (pk_c, pf_c), counts = compact_rows((packed, posflag), keep, cap=chunk_cap)
     off, tlo, thn, total_len = chunk_templates(pk_c, pf_c, counts, n_px, fb,
                                                channels)
-    out = emit_bytes(off, tlo, thn, out_cap)
-    out[:, :14] = header
-    col = torch.arange(out_cap, dtype=torch.int32, device=out.device)[None, :]
-    out = torch.where(col < total_len[:, None], out, 0)
+    with tracing.span("encode.emit"):
+        out = emit_bytes(off, tlo, thn, out_cap)
+        out[:, :14] = header
+        col = torch.arange(out_cap, dtype=torch.int32,
+                           device=out.device)[None, :]
+        out = torch.where(col < total_len[:, None], out, 0)
     ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
     return out, total_len, ok
 
@@ -410,6 +417,7 @@ def _shift_right(x, k: int, fill=0):
     return torch.cat([torch.full_like(x[:, :k], fill), x[:, :-k]], dim=1)
 
 
+@tracing.traced("encode.positions")
 def lane_positions(packed, flags):
     """Stage 1 of the lane encoder: packed (L, Np) int32, flags (L, Np)
     uint8 -> (packed_aug, posflag, keep, bits): the rows K3 keeps
@@ -473,6 +481,7 @@ def lane_table(pk_c, pf_c, counts, bits):
     return _last_same_hash_value_seg(pk_c, hash6(pk_c), nq_c, seg_c)
 
 
+@tracing.traced("encode.templates")
 def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     """Stage 3 of the lane encoder: the compacted rows (L, chunk_cap) int32
     and their counts -> (off, tlo, thn, incl, t1, total_len): each row's
@@ -480,8 +489,10 @@ def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     1-byte sentinel row at counts; incl = off + the row's bytes, which is
     a stream's exclusive end at its tail1 rows (t1); each lane's bytes.
     The segmented same-hash scan runs here unless table_val, lane_table's
-    result, is given (a stage profile times the scan on its own)."""
+    result, is given (a stage profile times the scan on its own).  Counts
+    L x chunk_cap ``template_rows``."""
     l, chunk_cap = pk_c.shape
+    tracing.count("template_rows", l * chunk_cap)
     b_t0, b_t1, b_nq = bits
     rows = torch.arange(chunk_cap, dtype=torch.int32, device=pk_c.device)[
         None, :]
@@ -558,9 +569,10 @@ def _encode_lanes_impl(packed, flags, chunk_cap: int, out_cap: int,
     cols = torch.arange(ends_cap, dtype=torch.int32, device=dev)[None, :]
     ends = torch.where(cols < nseg[:, None], ends, 0)
 
-    out = emit_bytes(off, tlo, thn, out_cap)
-    col = torch.arange(out_cap, dtype=torch.int32, device=dev)[None, :]
-    out = torch.where(col < total_len[:, None], out, 0)
+    with tracing.span("encode.emit"):
+        out = emit_bytes(off, tlo, thn, out_cap)
+        col = torch.arange(out_cap, dtype=torch.int32, device=dev)[None, :]
+        out = torch.where(col < total_len[:, None], out, 0)
     ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
     return out, ends, nseg, ok
 

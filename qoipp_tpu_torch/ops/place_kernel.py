@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import tracing
 
 WIN = 8192  # pixels per placement window
 
@@ -73,6 +74,7 @@ def fill_units(pos, val, unit: int, reach: int):
     return torch.where(owned, local, carry.repeat_interleave(unit, dim=1))
 
 
+@tracing.traced("decode.place")
 def place_fill(pb, emits, n_cap: int):
     """Place chunk emits at their pixel offsets and fill runs.
 

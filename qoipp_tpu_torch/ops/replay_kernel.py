@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from ..utils import tracing
 from .bitops import ALPHA_MASK, START_PIXEL_PACKED
 
 _START_HASH = (11 * 255) % 64
@@ -180,6 +181,7 @@ def replay_batch_carry(meta, val, prev_in, seen_in):
     return emits, prev_out, seen_out
 
 
+@tracing.traced("decode.replay")
 def replay_batch(meta, val):
     """meta/val: (C, B) int32 chunk rows (chunk-major).  Returns emits
     (C, B) int32: the value each row produces from the start state (a RUN

@@ -23,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .transfer import upload
 
 _chunk_bytes = int(os.environ.get("QOIPP_TPU_H2D_CHUNK_BYTES", "0") or 0)
@@ -48,17 +49,20 @@ def stage_h2d(arr, device: torch.device) -> torch.Tensor:
     preallocated tensor by a ``non_blocking`` copy on the current stream,
     so the result is ordered on that stream only; the caching host
     allocator keeps each pinned piece until its copy has run.  On the CPU
-    the pieces are cut and copied into their slices all the same."""
+    the pieces are cut and copied into their slices all the same.  Either
+    way the upload is one ``host.upload`` span."""
     a = np.asarray(arr)
     cb = _chunk_bytes
     if cb <= 0 or a.nbytes < 2 * cb or a.ndim == 0 or a.shape[0] < 2:
         return upload(a, device)
     rows = max(cb // max(a.nbytes // a.shape[0], 1), 1)
-    host = torch.from_numpy(np.ascontiguousarray(a))
-    out = torch.empty(host.shape, dtype=host.dtype, device=device)
-    card = device.type == "cuda"
-    for i in range(0, a.shape[0], rows):
-        piece = host[i: i + rows]
-        out[i: i + rows].copy_(piece.pin_memory() if card else piece,
-                               non_blocking=card)
+    with tracing.span("host.upload"):
+        host = torch.from_numpy(np.ascontiguousarray(a))
+        tracing.count("h2d_bytes", host.nbytes)
+        out = torch.empty(host.shape, dtype=host.dtype, device=device)
+        card = device.type == "cuda"
+        for i in range(0, a.shape[0], rows):
+            piece = host[i: i + rows]
+            out[i: i + rows].copy_(piece.pin_memory() if card else piece,
+                                   non_blocking=card)
     return out

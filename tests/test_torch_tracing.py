@@ -1,0 +1,296 @@
+"""The port's tracing (qoipp_tpu_torch.utils.tracing) on the CPU: off by
+default, spans nested per thread, requests stamped on spans and
+counters, the span names of the benchmarked paths (BatchPipeline decode
+and encode, ServingCodec decode and encode over tiles of the committed
+corpus), counters equal to what the code returns or moves, outputs
+byte-identical with tracing on and off, and the ``qoipp:`` ranges in a
+torch profiler's trace."""
+
+import json
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from qoipp_tpu_torch import oracle
+from qoipp_tpu_torch.common import Channels, Desc
+from qoipp_tpu_torch.models.packed import PackedEncoder
+from qoipp_tpu_torch.models.pipeline import BatchPipeline
+from qoipp_tpu_torch.models.serving import ServingCodec
+from qoipp_tpu_torch.utils import timing, tracing
+
+torch.set_num_threads(1)
+
+CORPUS = Path(__file__).resolve().parent / "resources" / "local_corpus"
+DESC = Desc(64, 48, Channels.RGB)
+
+
+def _batch(b=4, seed=0):
+    """Flat-patch RGB images of DESC and their streams."""
+    rng = np.random.default_rng(seed)
+    raws = [(rng.integers(0, 4, DESC.width * DESC.height * 3) * 60)
+            .astype(np.uint8) for _ in range(b)]
+    return raws, [oracle.encode(r, DESC)[0] for r in raws]
+
+
+def _tiles():
+    """A tile of each committed corpus file (its channels, geometries of
+    24-60 x 16-40), the tile's pixels and its stream."""
+    raws, descs, blobs = [], [], []
+    for i, path in enumerate(sorted(CORPUS.glob("*.qoi"))):
+        data = np.fromfile(path, np.uint8)
+        d = oracle.read_header(data)
+        px = oracle.decode(data, d, d.channels).reshape(
+            d.height, d.width, int(d.channels))
+        w, h = 24 + 12 * (i % 4), 16 + 8 * (i % 4)
+        y, x = d.height // 3, d.width // 3
+        tile = np.ascontiguousarray(px[y: y + h, x: x + w]).reshape(-1)
+        td = Desc(w, h, d.channels)
+        raws.append(tile)
+        descs.append(td)
+        blobs.append(oracle.encode(tile, td)[0])
+    return raws, descs, blobs
+
+
+def _codec():
+    # small caps, so the tiles take every route: packed tiers, the split
+    # route for the largest streams, geometry buckets to encode
+    return ServingCodec(pack_lane_bytes=1 << 11, pack_lane_px=2048,
+                        min_len=1 << 12, split_min_bytes=1 << 11,
+                        split_lanes=16, device="cpu")
+
+
+def _batch_decode():
+    raws, blobs = _batch()
+    pipe = BatchPipeline(DESC, device="cpu")
+    streams, sizes = pipe.pack_streams(blobs)
+    return pipe.decode(streams, sizes).numpy().tobytes()
+
+
+def _batch_encode():
+    raws, _ = _batch()
+    pipe = BatchPipeline(DESC, device="cpu")
+    streams, lengths, ok = pipe.encode_packed_chunked(
+        pipe.raw_to_packed(torch.from_numpy(np.stack(raws))), 2)
+    return streams.numpy().tobytes() + lengths.numpy().tobytes()
+
+
+def _serving_decode():
+    _, _, blobs = _tiles()
+    c = _codec()
+    outs = c.decode_finish(c.decode_dispatch_staged(c.decode_stage(blobs)))
+    return b"".join(o.tobytes() for o in outs)
+
+
+def _serving_encode():
+    raws, descs, _ = _tiles()
+    c = _codec()
+    outs = c.encode_finish(c.encode_dispatch_staged(
+        c.encode_stage(raws, descs)))
+    return b"".join(o.tobytes() for o in outs)
+
+
+PATHS = {
+    "batch_decode": (_batch_decode, {
+        "host.pack_streams", "host.upload", "decode.boundary",
+        "decode.fields", "decode.replay", "decode.place", "decode.unpack"}),
+    "batch_encode": (_batch_encode, {
+        "encode.positions", "encode.compact", "encode.templates",
+        "encode.emit"}),
+    "serving_decode": (_serving_decode, {
+        "host.route", "host.plan", "host.upload", "host.fetch", "host.sync",
+        "host.unpack", "decode.boundary", "decode.fields", "decode.replay",
+        "decode.place"}),
+    "serving_encode": (_serving_encode, {
+        "host.route", "host.plan", "host.upload", "host.fetch", "host.sync",
+        "host.unpack", "encode.positions", "encode.compact",
+        "encode.templates", "encode.emit"}),
+}
+
+
+def test_off_by_default_records_nothing():
+    assert not tracing.enabled()
+    assert tracing.span("host.plan") is tracing.span("decode.fields")
+    with tracing.span("host.plan"):
+        tracing.count("h2d_bytes", 5)
+    _batch_decode()
+    with tracing.collect() as tr:
+        pass
+    assert tr.spans == [] and tr.counters == {}
+    assert not tracing.enabled()
+
+
+def test_collect_is_not_reentrant():
+    with tracing.collect():
+        with pytest.raises(RuntimeError):
+            with tracing.collect():
+                pass
+        assert tracing.enabled()
+    assert not tracing.enabled()
+
+
+def test_nesting_gives_parent_ids_per_thread():
+    started, release = threading.Event(), threading.Event()
+
+    def worker():
+        with tracing.span("w.outer"):
+            started.set()
+            release.wait(10)
+            with tracing.span("w.inner"):
+                pass
+
+    with tracing.collect() as tr:
+        with tracing.span("m.outer"):
+            t = threading.Thread(target=worker)
+            t.start()
+            assert started.wait(10)
+            with tracing.span("m.inner"):
+                release.set()
+                t.join(10)
+    assert not t.is_alive()
+    by = {s.name: s for s in tr.spans}
+    assert set(by) == {"m.outer", "m.inner", "w.outer", "w.inner"}
+    assert by["m.outer"].parent == -1 and by["w.outer"].parent == -1
+    assert by["m.inner"].parent == by["m.outer"].id
+    assert by["w.inner"].parent == by["w.outer"].id
+    assert by["w.outer"].thread != by["m.outer"].thread
+    assert len({s.id for s in tr.spans}) == 4
+    for s in tr.spans:
+        assert s.start_ns <= s.end_ns
+
+
+def test_request_stamps_spans_and_counters_on_every_thread():
+    def worker():
+        with tracing.span("w"):
+            tracing.count("n", 2)
+
+    with tracing.collect() as tr:
+        with tracing.span("before"):
+            tracing.count("n")
+        with tracing.request(7):
+            with tracing.span("in"):
+                tracing.count("n", 3)
+            t = threading.Thread(target=worker)
+            t.start()
+            t.join(10)
+            with tracing.request(8):
+                tracing.count("n")
+            tracing.count("n")
+    assert not t.is_alive()
+    assert {s.name: s.request for s in tr.spans} == {
+        "before": -1, "in": 7, "w": 7}
+    assert tr.counters == {(-1, "n"): 1, (7, "n"): 6, (8, "n"): 1}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_path_emits_its_spans_and_same_output(path):
+    fn, names = PATHS[path]
+    off = fn()
+    with tracing.collect() as tr:
+        with tracing.request(0):
+            on = fn()
+    assert on == off
+    assert names <= {s.name for s in tr.spans}, (
+        names - {s.name for s in tr.spans})
+    assert all(s.request == 0 for s in tr.spans)
+    ids = {s.id for s in tr.spans}
+    assert all(s.parent in ids or s.parent == -1 for s in tr.spans)
+
+
+def test_batch_counters_equal_what_moves():
+    raws, blobs = _batch()
+    pipe = BatchPipeline(DESC, device="cpu")
+    with tracing.collect() as tr:
+        streams, sizes = pipe.pack_streams(blobs)
+        pipe.decode(streams, sizes)
+        pipe.encode_packed_chunked(
+            pipe.raw_to_packed(torch.from_numpy(np.stack(raws))), 2)
+    c = {k: v for (_, k), v in tr.counters.items()}
+    up = streams.nbytes + sizes.nbytes
+    assert c["h2d_bytes"] == up and c["h2d_pageable_bytes"] == up
+    assert c["template_rows"] == len(raws) * pipe.chunk_cap
+    assert "d2h_bytes" not in c and "host_syncs" not in c
+    names = [s.name for s in tr.spans]
+    # steps, not items: one span each, and one a sub-batch of the encode
+    assert names.count("host.pack_streams") == 1
+    assert names.count("decode.boundary") == 1
+    assert names.count("encode.templates") == 2
+
+
+def test_serving_decode_counters_equal_what_it_returns():
+    _, _, blobs = _tiles()
+    c = _codec()
+    fetched = []
+    with tracing.collect() as tr:
+        disp = c.decode_dispatch_staged(c.decode_stage(blobs))
+        n, packed_parts, split_parts = disp
+        for _, (dev, _, _) in packed_parts:
+            fetched.append(dev.numel() * dev.element_size())
+        for _, (dev, _, _, _) in split_parts:
+            fetched.append(dev.numel() * dev.element_size())
+        c.decode_finish(disp)
+    cnt = {k: v for (_, k), v in tr.counters.items()}
+    rounds = sum(p[1][3] for p in split_parts)
+    assert split_parts and rounds >= 1
+    assert cnt["split_rounds"] == rounds
+    assert cnt["d2h_bytes"] == sum(fetched)
+    syncs = sum(s.name in ("host.fetch", "host.sync") for s in tr.spans)
+    assert cnt["host_syncs"] == syncs
+    assert syncs == len(fetched) + rounds  # a fetch a part, a read a round
+    assert sum(s.name == "decode.replay" for s in tr.spans) == (
+        rounds + len(packed_parts))
+
+
+def test_serving_encode_counters_equal_what_it_moves():
+    raws, descs, _ = _tiles()
+    c = _codec()
+    with tracing.collect() as tr:
+        outs = c.encode_finish(c.encode_dispatch_staged(
+            c.encode_stage(raws, descs)))
+    cnt = {k: v for (_, k), v in tr.counters.items()}
+    assert cnt["h2d_bytes"] >= sum(r.nbytes for r in raws)
+    assert cnt["d2h_bytes"] >= sum(o.nbytes - 14 for o in outs)
+    assert cnt["host_syncs"] == sum(
+        s.name in ("host.fetch", "host.sync") for s in tr.spans)
+    assert cnt["template_rows"] > 0
+    assert "packed_recodes" not in cnt
+
+
+@pytest.mark.parametrize("noise,recodes", [(False, 0), (True, 1)])
+def test_packed_recodes_counts_a_second_encode(noise, recodes):
+    raws, descs, _ = _tiles()
+    raws, descs = raws[:4], descs[:4]
+    if noise:  # a dense stream past the first byte cap of its lane
+        rng = np.random.default_rng(1)
+        raws.append(rng.integers(0, 256, 64 * 64 * 3, np.uint8))
+        descs.append(Desc(64, 64, Channels.RGB))
+    enc = PackedEncoder(lane_px=8192, device="cpu")
+    with tracing.collect() as tr:
+        outs = enc.encode(raws, descs)
+    for raw, d, s in zip(raws, descs, outs):
+        assert np.array_equal(s, oracle.encode(raw, d)[0])
+    got = {k: v for (_, k), v in tr.counters.items()}
+    assert got.get("packed_recodes", 0) == recodes
+    assert sum(s.name == "encode.templates" for s in tr.spans) == 1 + recodes
+    assert sum(s.name == "host.sync" for s in tr.spans) == 1 + recodes
+
+
+def test_profiler_ranges_and_chrome_trace(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with tracing.collect(), profile(activities=[ProfilerActivity.CPU]) as p:
+        _batch_decode()
+    names = {e.name() for e in p.profiler.kineto_results.events()}
+    assert {"qoipp:host.pack_streams", "qoipp:decode.boundary"} <= names
+    with tracing.collect(), timing.trace(tmp_path):
+        _batch_decode()
+    events = json.loads((tmp_path / "trace.json").read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    assert "qoipp:decode.place" in {e.get("name") for e in events}
+    # off, no range reaches the profiler
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        _batch_decode()
+    assert not any(e.name().startswith("qoipp:")
+                   for e in p.profiler.kineto_results.events())
