@@ -89,7 +89,10 @@
    also in device time (torch.profiler) and beside its first build's
    time; K3 as the whole compact_rows call (device time by kernel group,
    beside its first build's time) and K6 also in device time, both with
-   their launch configuration and ptxas report; K1 and K5 on the first
+   their launch configuration and ptxas report; the batch encoder on the
+   batch RGB corpus at the default and at tight caps (chunk_cap under
+   n_px), held against the compact-first chain, with the scan tight caps
+   add (nth_chunk) alone, logged only; K1 and K5 on the first
    and on the last 4,096 rows, the last from the kernel's own carry,
    timed beside the first build's time and their chain bound: the
    longest chain of dependent operations the function needs on those
@@ -103,8 +106,8 @@
    PackedDecoder's plan, K1 also on the 4,096 rows over the first stream
    reset inside a lane, from the kernel's own carry; K3, K5 at every
    fixpoint round and K2 on the split group; K3's two compactions and K4
-   on every packed encode tier and on PackedEncoder's lanes; K3 and K4
-   on every geometry bucket; K1, K6, K3 and K4 on api's images: the
+   on every packed encode tier and on PackedEncoder's lanes; E1, K3 and
+   K4 on every geometry bucket; K1, K6, E1, K3 and K4 on api's images: the
    rows' "held_at"), and times K1 and K2 on the first decode tier and K3
    and K4 on the first encode tier beside their plain versions; then
    times every path (1 cold, 3 warmup, 5 timed runs, CUDA
@@ -921,15 +924,16 @@ def phase5_kernels_at_main_shapes(run, launches, card):
                             n_cap=k2["n_cap"]))
 
     packed = run["packed_in"][:8]  # the sub-batch encode_packed_chunked runs
-    posflag, keep, fb = enc_ops.chunk_positions(packed, pipe.n_px)
-    k3, (pk_c, pf_c), counts = _compact_time(packed, posflag, keep,
-                                             pipe.chunk_cap, card)
+    tlo, thn, keep, trailing = enc_ops.chunk_fields(packed, pipe.n_px,
+                                                    pipe.channels)
+    k3, (tlo, thn), counts = _compact_time((tlo, thn), keep, pipe.chunk_cap,
+                                           card)
     rows.append(_kernel_row(
         "compact", launches["compact"], k3.pop("err"), k3.pop("ms"),
         k3.pop("plain_ms"), k3.pop("bytes"), k3.pop("ops"), **k3))
 
-    off, tlo, thn, _ = enc_ops.chunk_templates(pk_c, pf_c, counts, pipe.n_px,
-                                               fb, pipe.channels)
+    off, tlo, thn, _ = enc_ops.chunk_offsets(tlo, thn, counts, keep,
+                                             trailing, pipe.n_px)
     args = (off, tlo, thn, pipe.out_cap)
     err = selfcheck.max_abs_err(emit_kernel.emit_bytes(*args),
                                 emit_kernel.emit_bytes_reference(*args))
@@ -942,26 +946,50 @@ def phase5_kernels_at_main_shapes(run, launches, card):
         "emit", launches["emit"], err, ms, plain_ms,
         12 * off.numel() + off.shape[0] * pipe.out_cap,
         OPS_PER_ELEMENT["emit"] * off.shape[0] * pipe.out_cap))
+    _tight_caps_time(run, card)
     return rows
 
 
-def _compact_time(packed, posflag, keep, cap, card):
-    """K3 on batch encode's sub-batch rows against its plain version on
-    counts and the rows below counts, the whole compact_rows call timed
-    (events, and device time by kernel group) beside the plain version
-    and the first build; its launch configuration logged.  The bound
+def _tight_caps_time(run, card):
+    """The batch encoder on the batch RGB corpus at the default caps and at
+    selfcheck.tight_caps, where chunk_cap < n_px and chunk_offsets finds
+    each row's chunk_cap-th chunk (nth_chunk) for the rows K3 cut short:
+    held against the compact-first chain, both calls and that scan alone
+    timed (events); logged only."""
+    pipe, packed = run["pipe"], run["packed_in"]
+    n_px, ch = pipe.n_px, pipe.channels
+    cap, out_cap = selfcheck.tight_caps(packed, n_px)
+    expect(cap < n_px, f"tight chunk_cap {cap} not under n_px {n_px}")
+    err = selfcheck.batch_encode_err(packed, n_px, ch, cap, out_cap)
+    expect(err == 0, "the batch encoder at tight caps differs from the "
+           "compact-first chain")
+    header = torch.arange(1, 15, dtype=torch.uint8, device=packed.device)
+    default_ms, tight_ms = (timed_ms(lambda c=c: enc_ops.encode_batch_checked(
+        packed, n_px, header, ch, chunk_cap=c[0], out_cap=c[1]))
+        for c in ((None, None), (cap, out_cap)))
+    _, keep, _ = enc_ops.chunk_positions(packed, n_px)
+    cut = int((keep.sum(dim=1) > cap).sum())
+    scan_ms = timed_ms(lambda: enc_ops.nth_chunk(keep, cap))
+    log(f"phase 5: batch encode ({packed.shape[0]} x {packed.shape[1]} px) "
+        f"at the default caps {default_ms:.3f} ms, at tight caps (chunk_cap "
+        f"{cap}, out_cap {out_cap}; {cut} rows cut short) {tight_ms:.3f} ms, "
+        f"equal to the compact-first chain; nth_chunk's scan alone "
+        f"{scan_ms:.3f} ms, on {card}")
+
+
+def _compact_time(planes, keep, cap, card):
+    """K3 on batch encode's sub-batch rows (E1's two template planes)
+    against its plain version on counts and the rows below counts, the
+    whole compact_rows call timed (events, and device time by kernel
+    group) beside the plain version and the first build; its launch
+    configuration logged.  The bound
     counts what the function must move: keep once, each kept row's plane
     values read and written once, counts; the first build's formula (every
     plane row read, cap rows written) is logged beside it."""
-    args = ((packed, posflag), keep, cap)
-    (pk_c, pf_c), counts = compact_kernel.compact_rows(*args)
-    (rk_c, rf_c), rcounts = compact_kernel.compact_rows_reference(*args)
-    live = torch.arange(cap, device=counts.device)[None, :] < \
-        counts[:, None]
-    err = max(selfcheck.max_abs_err(counts, rcounts),
-              *(selfcheck.max_abs_err(torch.where(live, g, 0),
-                                      torch.where(live, w, 0))
-                for g, w in ((pk_c, rk_c), (pf_c, rf_c))))
+    args = (planes, keep, cap)
+    got = compact_kernel.compact_rows(*args)
+    counts = got[1]
+    err = _compact_same(cap)(got, compact_kernel.compact_rows_reference(*args))
     expect(err == 0, "compact disagrees with its plain version")
     call = lambda: compact_kernel.compact_rows(*args)
     ms = timed_ms(call)
@@ -971,7 +999,7 @@ def _compact_time(packed, posflag, keep, cap, card):
     # the same launch with no row kept: keep read, scans and look-back only
     none_kept = torch.zeros_like(keep)
     empty_ms = device_ms(
-        lambda: compact_kernel.compact_rows((packed, posflag), none_kept, cap),
+        lambda: compact_kernel.compact_rows(planes, none_kept, cap),
         "K3 compact")
     plain_ms = timed_ms(lambda: compact_kernel.compact_rows_reference(*args))
     b, n = keep.shape
@@ -999,7 +1027,7 @@ def _compact_time(packed, posflag, keep, cap, card):
     return (dict(err=err, ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops,
                  device_ms=dev_ms, busy_ms=prof["busy_ms"],
                  device_ms_none_kept=empty_ms, rows=n, lanes=b, kept=kept,
-                 cap=cap), (pk_c, pf_c), counts)
+                 cap=cap), *got)
 
 
 def _place_fill_time(pix_before, emits, n_cap, where, card):
@@ -1633,20 +1661,27 @@ def _lane_encode_inputs(held, staged, what):
 
 def _hold_batch_encode(held, packed, n_px, channels, chunk_cap, out_cap,
                        what):
-    """K3 and K4 on the batch encoder's input (ops/encode.
+    """E1, K3 and K4 on the batch encoder's input (ops/encode.
     _encode_kernel_impl) as they run on it."""
     chunk_cap, out_cap = enc_ops.encode_caps(packed.shape[1], channels,
                                              chunk_cap, out_cap)
-    posflag, keep, fb = enc_ops.chunk_positions(packed, n_px)
-    args = ((packed, posflag), keep, chunk_cap)
-    b, n = keep.shape
-    (pk_c, pf_c), counts = _hold_call(
+    b, n = packed.shape
+    fargs = (packed.contiguous(), torch.full((b,), n_px, dtype=torch.int32,
+                                             device=packed.device), channels)
+    _hold_call(held, "fields",
+               lambda: fields_kernel.encode_fields_planes(*fargs),
+               lambda: fields_kernel.encode_fields_planes_reference(
+                   *fargs, *fields_kernel.start_state(b, packed.device)),
+               f"{what} ({b} x {n} px)")
+    tlo, thn, keep, trailing = enc_ops.chunk_fields(packed, n_px, channels)
+    args = ((tlo, thn), keep, chunk_cap)
+    (tlo, thn), counts = _hold_call(
         held, "compact", lambda: compact_kernel.compact_rows(*args),
         lambda: compact_kernel.compact_rows_reference(*args),
         f"{what}, 2 planes ({b} x {n} -> {chunk_cap})",
         _compact_same(chunk_cap))
-    off, tlo, thn, _ = enc_ops.chunk_templates(pk_c, pf_c, counts, n_px, fb,
-                                               channels)
+    off, tlo, thn, _ = enc_ops.chunk_offsets(tlo, thn, counts, keep,
+                                             trailing, n_px)
     _hold_call(held, "emit",
                lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap),
                lambda: emit_kernel.emit_bytes_reference(off, tlo, thn,
@@ -1657,8 +1692,8 @@ def _hold_batch_encode(held, packed, n_px, channels, chunk_cap, out_cap,
 def _hold_api(held, blob, raw, d, dev, what):
     """api's torch backend on one image: K1 on the one-shot decode's lane
     (its first and last rows), K6 on its flagged words where every emit
-    is opaque (the engine ops/decode.expand_bytes_batch takes), and K3 and
-    K4 on the one-shot encode's B=1 input."""
+    is opaque (the engine ops/decode.expand_bytes_batch takes), and E1, K3
+    and K4 on the one-shot encode's B=1 input."""
     meta, val, real, produced, pix_before, n_cap = \
         dec_ops.single_lane_inputs(blob, d, dev)
     err, full, _ = _replay_check("replay", meta, val,
@@ -1685,8 +1720,8 @@ def phase5_serving_kernels(s, rows, launches, card):
     tier and on PackedDecoder's own plan (K1 also on a window over the
     first stream reset inside a lane), K3, K5 at every fixpoint round and
     K2 on every split group, K3's two compactions and K4 on every packed
-    encode tier and on PackedEncoder's own lanes, K3 and K4 on every
-    geometry bucket, and K1, K6, K3 and K4 on api's images; kept in each
+    encode tier and on PackedEncoder's own lanes, E1, K3 and K4 on every
+    geometry bucket, and K1, K6, E1, K3 and K4 on api's images; kept in each
     kernel's row under "held_at".  K1 and K2 on the first decode tier and
     K3 and K4 on the first encode tier are also timed beside their plain
     versions (the row's "serving")."""
@@ -1726,8 +1761,8 @@ def phase5_serving_kernels(s, rows, launches, card):
         i = s["names"].index(name)
         _hold_api(held, s["blobs"][i], s["raws"][i], s["descs"][i], dev,
                   f"api [{name}]")
-    for name in ("replay", "place_fill", "replay_summary", "compact", "emit",
-                 "logfill"):
+    for name in ("replay", "place_fill", "replay_summary", "fields",
+                 "compact", "emit", "logfill"):
         expect(name in held, f"phase 5 held {name} at no serving shape")
 
     # timed: K1 and K2 on the first decode tier, K3 and K4 on the first
@@ -1937,6 +1972,15 @@ def _recorded(*targets):
             setattr(module, n, fn)
 
 
+def _fields_plain(packed, n_px, channels, *carries):
+    """E1's plain version, its carries the wrapper's default where the
+    caller gives none (the batch encoder's chunk_fields)."""
+    return fields_kernel.encode_fields_planes_reference(
+        packed, n_px, channels,
+        *(carries or fields_kernel.start_state(packed.shape[0],
+                                               packed.device)))
+
+
 # the wrappers the parallel and tools paths call, by the name their caller
 # looks up: the kernel's name and its plain version (None: K1 and K5, held
 # by _replay_check)
@@ -1945,14 +1989,15 @@ _RECORDED = {
     "replay_batch_summary": ("replay_summary", None),
     "logfill_batch": ("logfill", replay_kernel.logfill_batch_reference),
     "place_fill": ("place_fill", place_kernel.place_fill_reference),
-    "encode_fields_planes": ("fields",
-                             fields_kernel.encode_fields_planes_reference),
+    "encode_fields_planes": ("fields", _fields_plain),
     "compact_rows": ("compact", compact_kernel.compact_rows_reference),
     "emit_bytes": ("emit", emit_kernel.emit_bytes_reference)}
-# where dp decode and encode (BatchPipeline) and sp encode
+# where dp decode and encode (BatchPipeline; the batch encoder's
+# chunk_fields imports E1 from its module when called) and sp encode
 # (ops/device_stream._encode_rows) look them up
 _DP_CALLS = ((replay_kernel, ("replay_batch_carry",)),
              (place_kernel, ("place_fill",)),
+             (fields_kernel, ("encode_fields_planes",)),
              (enc_ops, ("compact_rows", "emit_bytes")))
 _SP_ENCODE_CALLS = ((device_stream, ("encode_fields_planes", "compact_rows",
                                      "emit_bytes")),)
@@ -1963,6 +2008,7 @@ _TOOLS_CALLS = ((replay_kernel, ("replay_batch_carry", "replay_batch_summary",
                                  "logfill_batch")),
                 (place_kernel, ("place_fill",)),
                 (compact_kernel, ("compact_rows",)),
+                (fields_kernel, ("encode_fields_planes",)),
                 (enc_ops, ("compact_rows", "emit_bytes"))) + _SP_ENCODE_CALLS
 
 
@@ -2081,7 +2127,7 @@ def _hold_recorded(held, calls, what):
 def parallel_dp_rank(cfg, path):
     """One rank of the dp job: its block of the batch RGB corpus (saved at
     path) through make_dp_decode, the decoded pixels re-encoded through
-    make_dp_encode, each image against the oracle; K1, K2, K3 and K4 held
+    make_dp_encode, each image against the oracle; K1, K2, E1, K3 and K4 held
     against their plain versions on the arguments the path gave them;
     then both timed."""
     dev = launch.rank_device(cfg["device_type"])
@@ -2131,7 +2177,8 @@ def parallel_dp_rank(cfg, path):
     del out, calls
     mpix = len(blobs) * dist.get_world_size() * pipe.n_px / 1e6
     paths = [dict(label="dp decode and re-encode", launches=launches,
-                  needs=("replay", "place_fill", "compact", "emit"))]
+                  needs=("replay", "place_fill", "fields", "compact",
+                         "emit"))]
     for label, fn in (("dp decode", lambda: dec(streams, sizes)),
                       ("dp encode", lambda: enc(enc_in))):
         ms, first_ms = _rank_ms(fn, dev)
@@ -2648,7 +2695,7 @@ def main():
     oneshot = phase3_prepare_oneshot(runs, dev)
     launches = {}
     drive("the batch path", lambda: phase3_main_path(runs),
-          ("replay", "place_fill", "compact", "emit"), launches)
+          ("replay", "place_fill", "fields", "compact", "emit"), launches)
     sparse, dense = split_runs
     drive("the split path (sparse)", lambda: phase3_split(sparse),
           ("replay_summary", "compact", "place_fill"), launches)
@@ -2660,8 +2707,8 @@ def main():
     drive("the one-shot path (decode rgba)",
           lambda: phase3_oneshot_decode(oneshot[1]), ("replay",), launches)
     drive("the one-shot path (encode rgb)",
-          lambda: phase3_oneshot_encode(oneshot[0]), ("compact", "emit"),
-          launches)
+          lambda: phase3_oneshot_encode(oneshot[0]),
+          ("fields", "compact", "emit"), launches)
     streams = phase3_prepare_stream(runs, split_runs)
     for st in streams:
         drive(f"the streaming path ({st['label']})",
@@ -2682,12 +2729,12 @@ def main():
           ("grid_step", "onehot_place"), launches)
     serve = phase3_prepare_serving(dev)
     drive("the serving path", lambda: phase3_serving(serve),
-          ("replay", "place_fill", "replay_summary", "compact", "emit"),
-          launches)
+          ("replay", "place_fill", "replay_summary", "fields", "compact",
+           "emit"), launches)
     drive("the packed lanes", lambda: phase3_packed(serve, dev),
           ("replay", "place_fill", "compact", "emit"), launches)
     drive("the api torch backend", lambda: phase3_api(serve, dev),
-          ("replay", "logfill", "compact", "emit"), launches)
+          ("replay", "logfill", "fields", "compact", "emit"), launches)
     par = phase3_parallel(runs[0], dev)
     phase4_parallel(par, launches)
     log(f"phase 4: launches over all paths: {launches}")

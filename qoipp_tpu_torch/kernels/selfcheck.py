@@ -95,6 +95,11 @@ bit-exact.  The cases:
   grid_step (E8): random words and 0xFFFFFFFF, which wraps to 0;
   onehot_place (E9, to TOLERANCE): unsorted targets, a bin hit 64 times,
               targets outside the bins, K not a multiple of the block.
+
+``batch_encode_err`` holds the batch encoder (fields-first: E1, K3, K4)
+against ``encode_compact_first``, the compact-first chain in plain
+versions, on the inputs a caller gives it, at the default caps or at
+``tight_caps``.
 """
 
 from __future__ import annotations
@@ -102,8 +107,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import (compact_kernel, emit_kernel, emit_window, fields_kernel,
-                   place_kernel, place_window, probes, replay_kernel)
+from ..ops import (compact_kernel, emit_kernel, emit_window, encode,
+                   fields_kernel, place_kernel, place_window, probes,
+                   replay_kernel)
 from ..ops.bitops import hash6
 
 REPLAY_TILE = 1024  # rows a tile of csrc/replay.cu (kTile)
@@ -521,6 +527,57 @@ def fields_segments(device, b: int, nb: int) -> int:
         _words(rng, b) | np.uint32(0xFF000000),
         rng.integers(0, 62, b).astype(np.int32), _words(rng, (64, b)))]
     return max(_fields_err(args, channels) for channels in (3, 4))
+
+
+def encode_compact_first(packed, n_px: int, header, channels: int,
+                         chunk_cap: int | None = None,
+                         out_cap: int | None = None):
+    """The batch encoder's reference on the card, where the JAX package
+    cannot run: the port's compact-first stages, in the order of the JAX
+    package's _encode_kernel_impl, in plain versions (chunk_positions,
+    K3's plain version on the pixels, chunk_templates, K4's plain
+    version) -> (out, total_len, ok) as encode_batch_checked returns
+    them."""
+    chunk_cap, out_cap = encode.encode_caps(packed.shape[1], channels,
+                                            chunk_cap, out_cap)
+    posflag, keep, fb = encode.chunk_positions(packed, n_px)
+    (pk_c, pf_c), counts = compact_kernel.compact_rows_reference(
+        (packed, posflag), keep, chunk_cap)
+    off, tlo, thn, total_len = encode.chunk_templates(pk_c, pf_c, counts,
+                                                      n_px, fb, channels)
+    out = emit_kernel.emit_bytes_reference(off, tlo, thn, out_cap)
+    out[:, :14] = header
+    col = torch.arange(out_cap, device=out.device)[None, :]
+    out = torch.where(col < total_len[:, None], out, 0)
+    ok = (counts + compact_kernel.BLK + 128 <= chunk_cap) & (
+        total_len <= out_cap)
+    return out, total_len, ok
+
+
+def tight_caps(packed, n_px: int):
+    """(chunk_cap, out_cap) under which some rows of packed are flagged
+    not ok: chunk_cap the ok rule's margin over the rows' median chunk
+    count, so rows up to the median pass and rows of more chunks than
+    chunk_cap keep their first chunk_cap (K3 drops the rest); out_cap Nb
+    + 777 bytes, under the streams of dense images."""
+    _, keep, _ = encode.chunk_positions(packed, n_px)
+    return (int(keep.sum(dim=1).median()) + compact_kernel.BLK + 128,
+            packed.shape[1] + 777)
+
+
+def batch_encode_err(packed, n_px: int, channels: int,
+                     chunk_cap: int | None = None,
+                     out_cap: int | None = None) -> int:
+    """Max |fields-first - compact-first| over the streams, lengths and ok
+    flags of the batch encoder (encode_batch_checked: E1, K3 and K4 on
+    the card) and encode_compact_first on B rows of packed pixel words,
+    n_px valid a row, at the given caps (None: the defaults)."""
+    header = torch.arange(1, 15, dtype=torch.uint8, device=packed.device)
+    got = encode.encode_batch_checked(packed, n_px, header, channels,
+                                      chunk_cap=chunk_cap, out_cap=out_cap)
+    want = encode_compact_first(packed, n_px, header, channels, chunk_cap,
+                                out_cap)
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
 def _window_cases(rng, q, device):

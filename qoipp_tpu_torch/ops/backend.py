@@ -3,7 +3,7 @@
 The counterpart of ``qoipp_tpu.ops.jax_backend``: host numpy in, host
 numpy out, every stage on one device (None means "cuda").  Encode pads the
 image to the JAX package's pixel bucket and runs the batch encoder at B=1
-(K3 compact, K4 emit); decode is ops/decode.decode_single (K1 on one lane,
+(E1 fields, K3 compact, K4 emit); decode is ops/decode.decode_single (K1 on one lane,
 K6 log-fill on opaque images).
 """
 

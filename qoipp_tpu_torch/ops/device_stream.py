@@ -53,7 +53,7 @@ from .compact_kernel import compact_rows
 from .decode import _bucket
 from .emit_kernel import WIN as EMIT_WIN
 from .emit_kernel import emit_bytes
-from .encode import TILE, pad_to_tile
+from .encode import TILE, pad_to_tile, row_offsets
 from .fields_kernel import BLK, encode_fields_planes, start_state
 
 
@@ -225,10 +225,8 @@ def _encode_rows(packed, v, prev_in, run_in, seen_in, channels: int):
     tlo_c = torch.where(live, tlo_c, 0)
     thn_c = torch.where(live, thn_c,
                         (rows == counts[:, None]).to(torch.int32) << 16)
-    nb_c = (thn_c >> 16).to(torch.int64)
-    incl = torch.cumsum(nb_c, dim=1)
-    off = (incl - nb_c).to(torch.int32)
-    lens = (incl[:, -1] - 1).to(torch.int32)
+    off, end = row_offsets(thn_c >> 16, 0)
+    lens = end - 1
     out_cap = _round_up((channels + 1) * n + 64, EMIT_WIN)
     out = emit_bytes(off, tlo_c, thn_c, out_cap)
     col = torch.arange(out_cap, device=dev)[None, :]

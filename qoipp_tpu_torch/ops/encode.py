@@ -1,18 +1,21 @@
-"""Parallel QOI encoder: the compact-first pipeline of
-``qoipp_tpu.ops.encode._encode_kernel_impl``.
+"""Parallel QOI encoder.
 
 After the encoder processes a differing pixel p, table slot hash(p) holds
 p whatever op was emitted, and run pixels never touch the table; so the
 table, and with it every op decision, is a pure function of the pixel
-sequence.  Four stages:
+sequence.  The batch encoder (``_encode_kernel_impl``) runs fields-first:
 
-1. chunk positions (``chunk_positions``): differing pixels and RUN-62 flush
-   points, by one cummax over (B, Nb);
-2. K3 compacts (pixel, position|flag) to those rows;
-3. ``chunk_templates``: the same-hash predecessor, op selection and the
-   6-byte template of every chunk row, plus the trailing run, end marker
-   and sentinel rows and the byte offsets;
+1. ``chunk_fields``: E1 writes every pixel's 6-byte template (run streak,
+   RUN-62 flush, same-hash lookup, op selection) and the trailing runs;
+   the pixels that emit bytes are the chunk rows;
+2. K3 compacts the templates to those rows;
+3. ``chunk_offsets``: the trailing run, end marker and sentinel rows
+   (``append_tail``) and the byte offsets;
 4. K4 writes the byte stream.
+
+The compact-first stages of the JAX package's ``_encode_kernel_impl``
+(``chunk_positions``, K3 on the pixels, ``chunk_templates``) stay as the
+stage profiles' steps and the batch encoder's reference.
 """
 
 from __future__ import annotations
@@ -160,9 +163,10 @@ def pack_templates(own_len, own, has_run, run_byte):
 
 @tracing.traced("encode.positions")
 def chunk_positions(packed, n_px: int):
-    """Stage 1.  packed (B, Nb) int32 -> (posflag, keep, fb): keep marks
-    chunk rows (differing pixels and RUN-62 flush points); posflag holds
-    the position with bit fb set on differing pixels."""
+    """Compact-first stage 1.  packed (B, Nb) int32 -> (posflag, keep,
+    fb): keep marks chunk rows (differing pixels and RUN-62 flush
+    points); posflag holds the position with bit fb set on differing
+    pixels."""
     b, nb = packed.shape
     idx = torch.arange(nb, dtype=torch.int32, device=packed.device).expand(b, nb)
     valid = idx < n_px
@@ -181,7 +185,7 @@ def chunk_positions(packed, n_px: int):
 
 
 def chunk_table(pk_c, pf_c, counts, fb: int):
-    """Stage 3's table scan: each compacted chunk row's same-hash
+    """chunk_templates' table scan: each compacted chunk row's same-hash
     predecessor word (_last_same_hash_value over the differing rows)."""
     rows = torch.arange(pk_c.shape[1], dtype=torch.int32,
                         device=pk_c.device)[None, :]
@@ -194,14 +198,14 @@ def chunk_table(pk_c, pf_c, counts, fb: int):
 @tracing.traced("encode.templates")
 def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
                     table_val=None):
-    """Stage 3.  Compacted chunk rows (pixel, position|flag), (B, chunk_cap)
-    int32, and their counts -> (off, tlo, thn, total_len): per-row byte
-    offsets and 6-byte templates (thn bits 16+ hold the byte count), with
-    the trailing run, end marker and a 1-byte sentinel appended at counts,
-    and each stream's length (sentinel excluded).  The same-hash scan runs
-    here unless table_val, chunk_table's result, is given (a stage
-    profile times the scan on its own).  Counts B x chunk_cap
-    ``template_rows``."""
+    """Compact-first stage 3.  Compacted chunk rows (pixel, position|flag),
+    (B, chunk_cap) int32, and their counts -> (off, tlo, thn, total_len):
+    per-row byte offsets and 6-byte templates (thn bits 16+ hold the byte
+    count), with the trailing run, end marker and a 1-byte sentinel
+    appended at counts, and each stream's length (sentinel excluded).
+    The same-hash scan runs here unless table_val, chunk_table's result,
+    is given (a stage profile times the scan on its own).  Counts B x
+    chunk_cap ``template_rows``."""
     b, chunk_cap = pk_c.shape
     tracing.count("template_rows", b * chunk_cap)
     dev = pk_c.device
@@ -232,43 +236,110 @@ def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
     has_run = torch.where(nq_c, gap > 0, valid_c)
     tlo, thn = pack_templates(own_len, own, has_run, run_byte)
 
-    # trailing run + end marker ride in as two appended rows; a third
-    # 1-byte sentinel row keeps the last of them a covered row in K4
     last_pos = torch.where(valid_c, pos, -1).amax(dim=1)
-    trailing = (n_px - 1 - last_pos).clamp(min=0)
-    has_trail = (trailing > 0).to(torch.int32)
-    trail_byte = TAG_RUN | ((trailing - 1) & 0x3F)
-    # with a trail: [run, 0 x7, 1]; without: [0 x7, 1, 0]
-    row1_tlo = torch.where(has_trail == 1, trail_byte, 0)
-    row1_thn = torch.full_like(row1_tlo, 6 << 16)
-    row2_tlo = torch.where(has_trail == 1, 1 << 16, 1 << 8).to(torch.int32)
-    row2_thn = (2 + has_trail) << 16
-    app_tlo = torch.stack([row1_tlo, row2_tlo, torch.zeros_like(row1_tlo)], 1)
-    app_thn = torch.stack([row1_thn, row2_thn,
-                           torch.full_like(row1_thn, 1 << 16)], 1)
-    # at counts, clamped into the row range as dynamic_update_slice clamps
-    at = (counts.clamp(max=chunk_cap - 3)[:, None]
-          + torch.arange(3, device=dev)[None, :]).to(torch.int64)
-    tlo = tlo.scatter(1, at, app_tlo)
-    thn = thn.scatter(1, at, app_thn)
+    return append_tail(tlo, thn, counts, (n_px - 1 - last_pos).clamp(min=0))
 
-    nb_c = ((thn >> 16) & 0xFFFF).to(torch.int64)
-    incl = torch.cumsum(nb_c, dim=1)
-    off = (14 + incl - nb_c).to(torch.int32)
-    total_len = (14 + incl[:, -1] - 1).to(torch.int32)  # sentinel excluded
-    return off, tlo, thn, total_len
+
+def append_tail(tlo, thn, counts, trailing):
+    """The tail of stage 3 in either order.  Chunk rows' templates (B,
+    chunk_cap) int32 (thn bits 16+ the byte count, rows at or past counts
+    arbitrary), their counts and each row's trailing run -> (off, tlo,
+    thn, total_len): the trailing run and end marker as two rows and a
+    1-byte sentinel row written into tlo and thn at counts (clamped into
+    the rows, as the JAX package's dynamic_update_slice clamps them),
+    each row's byte offset after the 14-byte header (rows past the
+    sentinel emit nothing), and each stream's length (sentinel
+    excluded)."""
+    b, chunk_cap = tlo.shape
+    dev = tlo.device
+    # with a trail: [run, 0 x7, 1]; without: [0 x7, 1, 0]; the sentinel
+    # keeps the marker's last row a covered row in K4
+    ht = (trailing > 0).to(torch.int32)
+    app_tlo = torch.stack([ht * (TAG_RUN | ((trailing - 1) & 0x3F)),
+                           256 << (8 * ht), torch.zeros_like(ht)], 1)
+    app_thn = torch.stack([torch.full_like(ht, 6 << 16), (2 + ht) << 16,
+                           torch.full_like(ht, 1 << 16)], 1)
+    at = counts.clamp(max=chunk_cap - 3)
+    cols = (at[:, None] + torch.arange(3, device=dev)[None, :]).to(torch.int64)
+    tlo.scatter_(1, cols, app_tlo)
+    thn.scatter_(1, cols, app_thn)
+    rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
+    off, end = row_offsets(torch.where(rows < (at + 3)[:, None], thn >> 16, 0),
+                           14)
+    return off, tlo, thn, end - 1
+
+
+def row_offsets(nb_c, start: int):
+    """Exclusive running sums along the rows of nb_c (B, R) int32, which
+    it overwrites, each row's from start -> (off (B, R) int32, end (B,)
+    int32: where each row's sum ends).  One scan over the rows laid end to
+    end: torch scans a 1-D tensor in one device-wide pass, on an H100
+    about 12x faster than its scan along the rows of 32 x 2 M; each row's
+    first count takes off what the rows before it sum to and adds start,
+    so the running sum restarts at start in each row (and stays within
+    one row's sum)."""
+    b, r = nb_c.shape
+    tot = nb_c.sum(dim=1, dtype=torch.int32)
+    nb_c[:, 0] += torch.cat([tot.new_full((1,), start), -tot[:-1]])
+    incl = torch.cumsum(nb_c.view(-1), dim=0, dtype=torch.int32).view(b, r)
+    off = incl - nb_c
+    off[:, 0] = start
+    return off, incl[:, -1]
+
+
+def nth_chunk(keep, n: int):
+    """Each row's position of its n-th chunk row: keep (B, Nb) bool, n >=
+    1 -> (B,) int32 (Nb - 1 in a row of fewer)."""
+    before, _ = row_offsets(keep.to(torch.int32), 0)
+    return (before < n).sum(dim=1, dtype=torch.int32) - 1
+
+
+@tracing.traced("encode.fields")
+def chunk_fields(packed, n_px: int, channels: int):
+    """Stage 1.  packed (B, Nb) int32 -> (tlo, thn, keep, trailing): E1's
+    template of every pixel from the start state (thn bits 16+ the byte
+    count), keep on the pixels that emit bytes (differing pixels and RUN-62
+    flushes: the chunk rows) and each row's trailing run (B,).  Counts
+    B x Nb ``fields_rows``."""
+    from .fields_kernel import BLK, encode_fields_planes
+
+    b, nb = packed.shape
+    tracing.count("fields_rows", b * nb)
+    tlo, thn, run_out, _ = encode_fields_planes(
+        packed.contiguous(),
+        torch.full((b,), n_px, dtype=torch.int32, device=packed.device),
+        channels)
+    return tlo, thn, thn >= 1 << 16, run_out[:, (n_px - 1) // BLK]
+
+
+@tracing.traced("encode.templates")
+def chunk_offsets(tlo_c, thn_c, counts, keep, trailing, n_px: int):
+    """Stage 3.  K3's compacted templates (B, chunk_cap) int32 and counts,
+    with chunk_fields' keep and trailing -> append_tail's (off, tlo, thn,
+    total_len).  Counts B x chunk_cap ``template_rows``."""
+    b, chunk_cap = tlo_c.shape
+    tracing.count("template_rows", b * chunk_cap)
+    if chunk_cap < n_px:
+        # a row of more chunks than chunk_cap keeps its first chunk_cap: its
+        # trailing run counts from the last one kept, as compact-first
+        # counts it
+        trailing = torch.where(counts > chunk_cap,
+                               n_px - 1 - nth_chunk(keep, chunk_cap),
+                               trailing)
+    return append_tail(tlo_c, thn_c, counts, trailing)
 
 
 def _encode_kernel_impl(packed, n_px: int, header, channels: int,
                         chunk_cap: int, out_cap: int):
     """packed (B, Nb) int32 -> ((B, out_cap) uint8 streams, (B,) int32
-    lengths, (B,) bool ok)."""
-    posflag, keep, fb = chunk_positions(packed, n_px)
-    (pk_c, pf_c), counts = compact_rows((packed, posflag), keep, cap=chunk_cap)
-    off, tlo, thn, total_len = chunk_templates(pk_c, pf_c, counts, n_px, fb,
-                                               channels)
+    lengths, (B,) bool ok), byte for byte the compact-first stages'
+    result, rows flagged not ok included."""
+    tlo, thn, keep, trailing = chunk_fields(packed, n_px, channels)
+    (tlo_c, thn_c), counts = compact_rows((tlo, thn), keep, cap=chunk_cap)
+    off, tlo_c, thn_c, total_len = chunk_offsets(tlo_c, thn_c, counts, keep,
+                                                 trailing, n_px)
     with tracing.span("encode.emit"):
-        out = emit_bytes(off, tlo, thn, out_cap)
+        out = emit_bytes(off, tlo_c, thn_c, out_cap)
         out[:, :14] = header
         col = torch.arange(out_cap, dtype=torch.int32,
                            device=out.device)[None, :]

@@ -30,7 +30,7 @@ host reassembly), ``decode.*`` and ``encode.*`` (the device steps).
 Spans mark steps, never items: a loop over requests or rows gets one span
 around it.  Counters: ``h2d_bytes``, ``h2d_pageable_bytes``,
 ``d2h_bytes``, ``host_syncs``, ``split_rounds``, ``packed_recodes``,
-``template_rows``.
+``template_rows``, ``fields_rows``.
 """
 
 from __future__ import annotations

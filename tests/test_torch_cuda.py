@@ -7,7 +7,10 @@ fields_segments), E3 on selfcheck.FILL2_CASES, E4 at every
 selfcheck.GROUPED_SHAPES, E5 on selfcheck.narrow_case at every ns the
 selfcheck takes, E6's instantiations on selfcheck.reach_case at every
 n_fill, E2 at every lanes on both, E7 at every lanes on
-selfcheck.EMIT_RUN_CASES, a single-image batch decode, and the experiment scripts (E2-E7, and E8/E9 in
+selfcheck.EMIT_RUN_CASES, a single-image batch decode, the batch encoder
+(fields-first) against the compact-first chain on 1080p batches, the
+photo and a one-shot bucket at default and tight caps
+(selfcheck.batch_encode_err), E1 at the batch cell's 32 x 2,073,600, and the experiment scripts (E2-E7, and E8/E9 in
 profile_r2) at a small size; and K1 and K5 against their plain versions
 on the whole output over no rows and tile-edge row counts, lane counts,
 both row layouts and one-class, reset, random and palette rows; K3 and K6
@@ -35,6 +38,7 @@ Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q"""
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -222,6 +226,74 @@ def test_fields_segments_match_plain_version(cuda, b, nb):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     seg_tiles, nseg = fields_kernel.segments(b, nb, sms)
     assert nseg * seg_tiles * 1024 >= nb > (nseg - 1) * seg_tiles * 1024
+
+
+# the batch encoder's inputs on the card: 32 frames of the batch cell's
+# generator (its sub-batch), RGBA frames, the committed 1080p photo, and
+# a one-shot bucket (B = 1, n_px short of the bucket)
+BATCH_ENCODE_CASES = ("frames_1080p_rgb_b32", "frames_1080p_rgba_b8",
+                      "photo_1080p", "oneshot_bucket_rgba")
+
+
+@functools.cache
+def _batch_encode_case(case):
+    """(packed (B, Nb) int32 on the CPU, n_px, channels) of one case."""
+    from qoipp_tpu_torch.ops import backend
+    from qoipp_tpu_torch.ops.bitops import pixels_to_packed
+
+    if case.startswith("frames"):
+        b, ch = (32, 3) if case.endswith("b32") else (8, 4)
+        _, raws, _ = make_corpus(b, 1920, 1080, seed=b, channels=ch)
+        raw = torch.from_numpy(np.stack(raws))
+        return pixels_to_packed(raw, ch), 1920 * 1080, ch
+    name = "photo_china_1080p" if case == "photo_1080p" else (
+        "screenshot_requests")
+    blob = np.fromfile(CORPUS_DIR / f"{name}.qoi", np.uint8)
+    d = oracle.read_header(blob)
+    raw = oracle.decode(blob, d, d.channels)
+    if case == "photo_1080p":  # the photo and its pixels reversed
+        px = raw.reshape(-1, 3)
+        raw = torch.from_numpy(np.stack([px, px[::-1]]).reshape(2, -1))
+        return pixels_to_packed(raw, 3), d.width * d.height, 3
+    packed, _ = backend.encode_inputs(raw, d, "cpu")
+    return packed, d.width * d.height, int(d.channels)
+
+
+@pytest.mark.parametrize("caps", ["default", "tight"])
+@pytest.mark.parametrize("case", BATCH_ENCODE_CASES)
+def test_batch_encode_matches_compact_first(cuda, case, caps):
+    """The fields-first batch encoder (E1, K3, K4) against the compact-
+    first chain in plain versions (selfcheck.encode_compact_first):
+    streams, lengths and ok flags, at the default caps and at tight ones
+    (selfcheck.tight_caps: rows past chunk_cap, rows over out_cap)."""
+    packed, n_px, channels = _batch_encode_case(case)
+    packed = packed.to(cuda)
+    cap = selfcheck.tight_caps(packed, n_px) if caps == "tight" else ()
+    before = kernels.launch_counts()
+    assert selfcheck.batch_encode_err(packed, n_px, channels, *cap) == 0
+    after = kernels.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in ("fields", "compact",
+                                                    "emit"))
+
+
+def test_fields_at_batch_encode_shape(cuda):
+    """E1 from the start state on the batch cell's sub-batch, 32 x
+    2,073,600 generator pixels: segments of 225 tiles (230,400 px on an
+    H100), wider than any of FIELDS_SEGMENT_SHAPES, against its plain
+    version."""
+    from qoipp_tpu_torch.ops import fields_kernel
+
+    packed, n_px, channels = _batch_encode_case("frames_1080p_rgb_b32")
+    b, nb = packed.shape
+    edge = selfcheck.fields_edge(cuda, b, nb)
+    assert edge > max(selfcheck.fields_edge(cuda, *shape)
+                      for shape in selfcheck.FIELDS_SEGMENT_SHAPES)
+    args = (packed.to(cuda), torch.full((b,), n_px, dtype=torch.int32,
+                                        device=cuda), channels)
+    got = fields_kernel.encode_fields_planes(*args)
+    want = fields_kernel.encode_fields_planes_reference(
+        *args, *fields_kernel.start_state(b, cuda))
+    assert max(selfcheck.max_abs_err(g, w) for g, w in zip(got, want)) == 0
 
 
 @pytest.mark.parametrize("case", selfcheck.COMPACT_CASES)

@@ -97,7 +97,7 @@ PATHS = {
         "host.pack_streams", "host.upload", "decode.boundary",
         "decode.fields", "decode.replay", "decode.place", "decode.unpack"}),
     "batch_encode": (_batch_encode, {
-        "encode.positions", "encode.compact", "encode.templates",
+        "encode.fields", "encode.compact", "encode.templates",
         "encode.emit"}),
     "serving_decode": (_serving_decode, {
         "host.route", "host.plan", "host.upload", "host.fetch", "host.sync",
@@ -105,7 +105,7 @@ PATHS = {
         "decode.place"}),
     "serving_encode": (_serving_encode, {
         "host.route", "host.plan", "host.upload", "host.fetch", "host.sync",
-        "host.unpack", "encode.positions", "encode.compact",
+        "host.unpack", "encode.positions", "encode.fields", "encode.compact",
         "encode.templates", "encode.emit"}),
 }
 
@@ -211,12 +211,15 @@ def test_batch_counters_equal_what_moves():
     up = streams.nbytes + sizes.nbytes
     assert c["h2d_bytes"] == up and c["h2d_pageable_bytes"] == up
     assert c["template_rows"] == len(raws) * pipe.chunk_cap
+    assert c["fields_rows"] == len(raws) * pipe.nb
     assert "d2h_bytes" not in c and "host_syncs" not in c
     names = [s.name for s in tr.spans]
     # steps, not items: one span each, and one a sub-batch of the encode
     assert names.count("host.pack_streams") == 1
     assert names.count("decode.boundary") == 1
     assert names.count("encode.templates") == 2
+    assert names.count("encode.fields") == 2
+    assert "encode.positions" not in names
 
 
 def test_serving_decode_counters_equal_what_it_returns():
