@@ -9,17 +9,26 @@ The last line of standard output is one JSON object: ``correct``,
 with ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``: each number compared with its limit,
 which are also the last lines of standard error.
+
+With ``--trace 1`` the program's own spans and counters
+(``qoipp_tpu_torch.utils.tracing``) are collected from the window's start
+to the traced calls' end, each call a ``tracing.request`` of its own; the
+metrics read them from ``Record.program`` (``portbench.program``): host
+readings over the window's calls, device ops by span over the traced
+calls.  ``--trace 0`` never imports the program's tracing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import subprocess
 import sys
 import time
 import traceback
-from typing import List, NamedTuple, Optional
+from typing import TYPE_CHECKING, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +37,9 @@ from . import drivers, guard
 from .spec import Spec
 from .trace import (DeviceTrace, Recorder, breakdown, is_transfer,
                     port_kernel, read_profile)
+
+if TYPE_CHECKING:  # program.py imports this module
+    from .program import ProgramRecord
 
 
 class Sample(NamedTuple):
@@ -48,6 +60,10 @@ class Record(NamedTuple):
     trace: Optional[DeviceTrace]
     work: dict  # roofline.Work a call, by kernel
     device_kind: str
+    # the program's own spans and counters (--trace 1, where the port has
+    # them): host ones of the window's calls, device ops by span of the
+    # traced calls
+    program: Optional["ProgramRecord"] = None
 
 
 def parse(argv=None):
@@ -102,15 +118,50 @@ def _profiler():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
+def _program_tracing():
+    """The port's tracing module, or None in a checkout whose port has
+    none."""
+    name = "qoipp_tpu_torch.utils.tracing"
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name != name:
+            raise
+        return None
+
+
+def _window_only(tracing, collected, calls: int):
+    """The spans and counters of the window's calls (requests 0 .. calls
+    - 1), not of the traced calls after it."""
+    t = tracing.Trace()
+    t.spans = [s for s in collected.spans if 0 <= s.request < calls]
+    t.counters = {k: v for k, v in collected.counters.items()
+                  if 0 <= k[0] < calls}
+    return t
+
+
 def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
     """One run; ``device`` None means the card the cell asks for (the
-    tests pass the CPU, where the program runs its plain versions)."""
-    spec = spec or Spec()
+    tests pass the CPU, where the program runs its plain versions).  The
+    process's torch thread count is as it was afterwards."""
+    threads = torch.get_num_threads()
+    try:
+        return _run(args, t0, spec or Spec(), device)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _run(args, t0: float, spec: Spec, device) -> dict:
     cell = spec.cell(args.workload)
     if device is None:
         device = require_device(cell["chips"])
     config = spec.config(cell["config"])
     traffic = spec.traffic(cell["traffic"])
+    # a traffic file may hold torch's host work to a few threads: a
+    # host-bound call then does not wait on a pool of threads that a busy
+    # host deschedules one by one
+    if "host_threads" in traffic:
+        torch.set_num_threads(int(traffic["host_threads"]))
     wanted = (spec.per_layer(cell["name"]) if args.trace
               else spec.end_to_end(cell["name"]))
     drv = drivers.make(spec, config, traffic, args.seed, device,
@@ -124,6 +175,11 @@ def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
     drv.warmup(rec)
     _sync(device)
     rec.spans.clear()
+    # the program's own tracing (--trace 1): on from the window's start to
+    # the traced calls' end; with --trace 0 never imported
+    tracing = _program_tracing() if args.trace else None
+    if tracing is not None:
+        from . import program  # which imports this module
 
     # -- the window ----------------------------------------------------------
     sampler = np.random.default_rng([args.seed, 2])
@@ -134,8 +190,10 @@ def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
         """Call ``i``, timed; a seeded reservoir of the calls keeps the
         outputs that are checked."""
         rec.call = i
+        request = (tracing.request(i) if tracing is not None
+                   else contextlib.nullcontext())
         start = time.perf_counter()
-        with rec.span("call"):
+        with rec.span("call"), request:
             out = drv.call(rec)
         latency = time.perf_counter() - start
         s = Sample(i, out.served, out.outputs)
@@ -148,39 +206,49 @@ def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
         return latency, out.items, out.pixels
 
     latencies, items, pixels = [], 0, 0
-    first = time.perf_counter()
-    setup_s = first - t0
-    window_s = 0.0
-    while window_s < args.seconds:
-        latency, n, px = timed(len(latencies))
-        latencies.append(latency)
-        items, pixels = items + n, pixels + px
-        window_s = time.perf_counter() - first
-    spans = list(rec.spans)
-
-    # -- the traced calls, after the window: the profiler slows the calls
-    # it traces, and none of the window's ----------------------------------
-    tr, i = None, len(latencies)
+    tr, profile = None, None
     trace_calls = traffic.get("trace_calls", 8)
-    for tries in range(1, 3) if args.trace else ():
-        prof = _profiler()
-        prof.start()
-        rec.profiling = True
-        for _ in range(trace_calls):
-            _, n, _ = timed(i)
-            items, i = items + n, i + 1
-        prof.stop()
-        rec.profiling = False
-        t = read_profile(prof, trace_calls)
-        # CUPTI at times drops a trace's events, or some of them: a trace
-        # that is not whole is taken again, once
-        if t.device and (tries == 2
-                         or _whole(t, traffic.get("trace_kernels", []))):
-            tr = t
-            break
+    with (tracing.collect() if tracing is not None
+          else contextlib.nullcontext()) as collected:
+        first = time.perf_counter()
+        setup_s = first - t0
+        window_s = 0.0
+        while window_s < args.seconds:
+            latency, n, px = timed(len(latencies))
+            latencies.append(latency)
+            items, pixels = items + n, pixels + px
+            window_s = time.perf_counter() - first
+        spans = list(rec.spans)
+
+        # -- the traced calls, after the window: the profiler slows the
+        # calls it traces, and none of the window's ---------------------------
+        i = len(latencies)
+        for tries in range(1, 3) if args.trace else ():
+            prof = _profiler()
+            prof.start()
+            rec.profiling = True
+            for _ in range(trace_calls):
+                _, n, _ = timed(i)
+                items, i = items + n, i + 1
+            prof.stop()
+            rec.profiling = False
+            t = read_profile(prof, trace_calls)
+            # CUPTI at times drops a trace's events, or some of them: a
+            # trace that is not whole is taken again, once
+            if t.device and (tries == 2
+                             or _whole(t, traffic.get("trace_kernels", []))):
+                tr = t
+                if tracing is not None:
+                    profile = program.read_program_profile(prof, trace_calls)
+                break
     if args.trace and tr is None:
         raise RuntimeError("torch.profiler kept no device event in two "
                            f"traces of {trace_calls} calls")
+    prog = None
+    if tracing is not None:
+        prog = program.ProgramRecord(
+            drv.direction, len(latencies), pixels,
+            _window_only(tracing, collected, len(latencies)), profile)
 
     # -- after the window: memory, the reference, the guard ------------------
     peak = (torch.cuda.max_memory_allocated(device)
@@ -196,7 +264,7 @@ def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
                            f"loaded: {', '.join(found)}")
 
     record = Record(drv.direction, setup_s, window_s, latencies, items,
-                    pixels, spans, tr, drv.work, kind)
+                    pixels, spans, tr, drv.work, kind, prog)
     metrics = {}
     for m in wanted:
         value = spec.reader(m["name"])(record)
@@ -219,6 +287,12 @@ def run(args, t0: float, spec: Spec | None = None, device=None) -> dict:
         dev["busy_s"] = tr.busy_s
         dev["window_s"] = tr.window_s
         result["breakdown"] = breakdown(tr)
+        if profile is not None:
+            named, by_span = program.idle_gaps_program(profile)
+            result["breakdown"].update(
+                idle_gaps_program=named,
+                idle_by_span=[[k, v] for k, v, _ in by_span[:10]],
+                device_ops_by_span=program.device_ops_by_span(profile)[:10])
     result["compared"] = check.compared
     result["checks"] = {k: {"value": v, "limit": lim}
                         for k, (v, lim) in check.numbers.items()}

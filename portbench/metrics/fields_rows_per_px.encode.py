@@ -1,0 +1,13 @@
+"""fields_rows_per_px.encode (rows/px): the program's counter
+``fields_rows`` (the pixel slots E1 runs over) over the pixels encoded in
+the window's calls."""
+
+from portbench import program
+
+
+def read(rec):
+    p = rec.program
+    if p is None or p.direction != "encode":
+        return None
+    v = program.counter(p, "fields_rows")
+    return None if v is None or not p.pixels else v / p.pixels

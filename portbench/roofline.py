@@ -26,6 +26,7 @@ REPLAY_OPS_PER_CHUNK = 24  # decode a chunk's op, hash, table and state
 PLACE_OPS_PER_PIXEL = 14  # the nearest writer at or before, a select
 COMPACT_OPS_PER_ROW = 3  # test, count, store index
 EMIT_OPS_PER_BYTE = 4  # shift, mask, store, bound test
+FIELDS_OPS_PER_PIXEL = 24  # hash, run and index tests, diffs, template
 
 
 class Work(NamedTuple):
@@ -47,6 +48,12 @@ def k2_place(chunks: int, pixels: int) -> Work:
     return Work(8 * chunks + 4 * pixels, PLACE_OPS_PER_PIXEL * pixels)
 
 
+def e1_fields(pixels: int) -> Work:
+    """E1 (the encode fields pass): each pixel read (4 bytes, packed) and
+    its two template words written (8 bytes)."""
+    return Work(12 * pixels, FIELDS_OPS_PER_PIXEL * pixels)
+
+
 def k3_compact(rows: int, kept: int, planes: int = 2) -> Work:
     """K3: the keep flag of every row scanned (1 byte), each kept row's
     planes read and written (4 bytes a plane each way)."""
@@ -66,19 +73,20 @@ def bound_s(work: Work, kind: str) -> Optional[float]:
     return max(work.bytes / peaks[0], work.ops / peaks[1])
 
 
-def share(rec, work_key: str, kernel: str, exclude: str = "") -> Optional[
+def share(rec, work_key: str, *kernels: str, exclude: str = "") -> Optional[
         float]:
-    """Percent of the roofline of the program's kernel ``kernel`` (a
-    function name of trace.PORT_KERNELS; names holding ``exclude`` left
-    out) in the traced run: the bound of the work a call needs over the
-    kernel's device time a traced call.  None where the run has no trace,
-    no such kernel, no work counted or no peaks for its card."""
+    """Percent of the roofline of the program's ``kernels`` (function names
+    of trace.PORT_KERNELS: the launches that do the work together; names
+    holding ``exclude`` left out) in the traced run: the bound of the work
+    a call needs over their device time a traced call.  None where the run
+    has no trace, no such kernel, no work counted or no peaks for its
+    card."""
     tr = rec.trace
     work = rec.work.get(work_key)
     if tr is None or work is None:
         return None
     t = sum(e.end - e.start for e in tr.device
-            if port_kernel(e.name) == kernel
+            if port_kernel(e.name) in kernels
             and not (exclude and exclude in e.name))
     b = bound_s(work, rec.device_kind)
     if not t or b is None:

@@ -1,9 +1,11 @@
 """What the benchmark runs, found by name: ``BENCHMARK.json`` at the root
 of the checkout, and under the benchmark's folder one file for each
 configuration (``configs/<name>.json``), traffic mix
-(``traffic/<name>.json``) and metric (``metrics/<name>.py``, a reader
-with ``read(record) -> float | None``).  Nothing here names a cell, a
-configuration or a metric: adding one is adding its files and entries.
+(``traffic/<name>.json``), driver kind (``kinds/<kind>.py``, exporting
+``DRIVER``) and metric (``metrics/<name>.py``, a reader with
+``read(record) -> float | None``).  Nothing here names a cell, a
+configuration, a kind or a metric: adding one is adding its files and
+entries.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ class Spec:
             bench = json.loads((self.root / "BENCHMARK.json").read_text())
         self.bench = bench
         self._readers: dict = {}
+        self._drivers: dict = {}
 
     def cell(self, name: str) -> dict:
         for w in self.bench["workloads"]:
@@ -60,16 +63,27 @@ class Spec:
                 if ("workloads" in m and cell in m["workloads"])
                 or ("workloads" not in m and m["moves"] in moved)]
 
+    def _load(self, folder: str, name: str, prefix: str):
+        """The module ``<home>/<folder>/<name>.py``, loaded by its path."""
+        path = self.home / folder / f"{name}.py"
+        mod_name = prefix + "".join(c if c.isalnum() else "_" for c in name)
+        spec = importlib.util.spec_from_file_location(mod_name, path)
+        if spec is None or not path.exists():
+            raise FileNotFoundError(f"no {folder[:-1]} file {path}")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
     def reader(self, metric: str):
         """The metric's ``read`` function, from metrics/<name>.py."""
         if metric not in self._readers:
-            path = self.home / "metrics" / f"{metric}.py"
-            mod_name = "portbench_metric_" + "".join(
-                c if c.isalnum() else "_" for c in metric)
-            spec = importlib.util.spec_from_file_location(mod_name, path)
-            if spec is None or not path.exists():
-                raise FileNotFoundError(f"no reader {path}")
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            self._readers[metric] = mod.read
+            self._readers[metric] = self._load(
+                "metrics", metric, "portbench_metric_").read
         return self._readers[metric]
+
+    def driver(self, kind: str):
+        """The traffic kind's ``DRIVER`` class, from kinds/<kind>.py."""
+        if kind not in self._drivers:
+            self._drivers[kind] = self._load(
+                "kinds", kind, "portbench_kind_").DRIVER
+        return self._drivers[kind]

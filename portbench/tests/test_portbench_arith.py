@@ -1,7 +1,7 @@
 """The benchmark's arithmetic on made-up records: the interval union, the
 idle share over the traced window's wall time, the p95 over every call,
 host spans, the roofline counts from inputs, the kernel names, the
-draws and the breakdown."""
+draws and the breakdown; and the traffic's host threads."""
 
 from __future__ import annotations
 
@@ -96,6 +96,7 @@ def test_roofline_counts_from_inputs():
                                              14 * 5000)
     assert roofline.k3_compact(5000, 1000) == (5000 + 16 * 1000, 3 * 5000)
     assert roofline.k4_emit(1003, 4000) == (12 * 1003 + 4000, 4 * 4000)
+    assert roofline.e1_fields(5000) == (12 * 5000, 24 * 5000)
 
 
 def test_roofline_share_reads_the_named_kernel_only():
@@ -111,6 +112,21 @@ def test_roofline_share_reads_the_named_kernel_only():
     ops = {"k1": roofline.Work(0.0, 67e9)}  # 1 ms at 67 T/s
     assert SPEC.reader("k1_roofline")(rec._replace(work=ops)) == \
         pytest.approx(50.0)
+
+
+def test_e1_roofline_reads_both_fields_launches():
+    """E1's share counts fields_kernel and its summary launch, and no
+    other kernel."""
+    work = {"e1": roofline.Work(3.35e9, 0.0)}  # 1 ms at 3.35 TB/s
+    e1 = "void fields_kernel(unsigned int const*, int const*, int)"
+    summary = "fields_summary_kernel(unsigned int const*, int const*)"
+    dev = [Event(e1, 0, 0.003), Event(summary, 0.003, 0.004),
+           Event(K1, 0.004, 0.104), Event(TORCH, 0.104, 0.2)]
+    rec = _record(direction="encode", trace=DeviceTrace(dev, [], 0, 1, 2),
+                  work=work)
+    # 4 ms of E1 over 2 calls: 2 ms a call against a 1 ms bound
+    assert SPEC.reader("e1_roofline")(rec) == pytest.approx(50.0)
+    assert SPEC.reader("e1_roofline")(rec._replace(work={})) is None
 
 
 def test_draws_are_balanced_dealt_and_seeded():
@@ -172,7 +188,7 @@ def test_traced_calls_are_left_out_of_host_metrics(tmp_path, monkeypatch):
     read every call of the window and none of the traced ones."""
     import json
 
-    from portbench import harness
+    from portbench import harness, program
     from portbench_small import run_cpu, small_spec
     from qoipp_tpu_torch.models.serving import ServingCodec
 
@@ -209,6 +225,10 @@ def test_traced_calls_are_left_out_of_host_metrics(tmp_path, monkeypatch):
 
     monkeypatch.setattr(harness, "_profiler", Profiler)
     monkeypatch.setattr(harness, "read_profile", read_profile)
+    # the made-up profiler keeps no kineto events to tie to the program's
+    # spans
+    monkeypatch.setattr(program, "read_program_profile",
+                        lambda prof, calls: None)
     monkeypatch.setattr(ServingCodec, "decode_stage", counted)
     monkeypatch.setattr(spec, "reader", kept)
     r = run_cpu(spec, "serving_corpus_decode", seconds=1.0, trace=1)
@@ -221,3 +241,40 @@ def test_traced_calls_are_left_out_of_host_metrics(tmp_path, monkeypatch):
     assert len(rec.latencies) == len(window) - 2
     calls = [s.call for s in rec.spans if s.name == "decode_stage"]
     assert calls == list(range(len(window) - 2))
+    # the program's own spans too: every call of the window, no traced one
+    assert {s.request for s in rec.program.trace.spans} == set(calls)
+
+
+def test_traffic_holds_the_host_threads(tmp_path, monkeypatch):
+    """A traffic file's ``host_threads`` is torch's thread count from
+    set-up through the window, and the count before the run is back
+    after it; a traffic file without the key leaves the count alone."""
+    import json
+
+    import torch
+
+    from portbench_small import run_cpu, small_spec
+
+    spec = small_spec(tmp_path)
+    before = torch.get_num_threads()
+    mixes = {"serving_corpus_encode": spec.home / "traffic"
+             / "encode_16req_calls.json",
+             "serving_corpus_decode": spec.home / "traffic"
+             / "decode_16req_calls.json"}
+    assert json.loads(mixes["serving_corpus_encode"].read_text())[
+        "host_threads"] == 1
+    assert "host_threads" not in json.loads(
+        mixes["serving_corpus_decode"].read_text())
+    for cell, want in (("serving_corpus_encode", 1),
+                       ("serving_corpus_decode", before)):
+        drv = spec.driver(json.loads(mixes[cell].read_text())["kind"])
+        seen, call = [], drv.call
+
+        def counted(self, *a, _call=call, _seen=seen, **k):
+            _seen.append(torch.get_num_threads())
+            return _call(self, *a, **k)
+
+        monkeypatch.setattr(drv, "call", counted)
+        assert run_cpu(spec, cell)["correct"] is True
+        assert seen and set(seen) == {want}
+        assert torch.get_num_threads() == before

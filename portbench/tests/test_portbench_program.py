@@ -212,3 +212,88 @@ def test_program_run_reports_its_readers(spec, cell):
     assert r["calls"] >= 1 and len(r["mpix_s"]["on"]) == 1
     assert r["span_cost_ns"]["off"] < r["span_cost_ns"]["on"]
     assert not tracing.enabled()
+
+
+def _both_directions():
+    """Made-up records of each direction holding every span, counter and
+    device span the program's metrics read."""
+    spans = [
+        _span("host.pack_streams", 1, -1, 0, 0, 4),
+        _span("host.unpack", 2, -1, 0, 0, 10),
+        _span("host.fetch", 3, 2, 0, 1, 4),
+        _span("host.sync", 4, -1, 1, 30, 31),
+    ]
+    counters = {(0, "d2h_bytes"): 3000, (1, "split_rounds"): 3,
+                (0, "template_rows"): 1750, (1, "fields_rows"): 1000}
+    prof = ProgramProfile(
+        [], [DeviceOp("k", 0.0, 0.003, ("decode.boundary",)),
+             DeviceOp("k", 0.0, 0.005, ("encode.templates",))],
+        0.0, 1.0, 2, {})
+    return [_rec(d, spans, counters, profile=prof)
+            for d in ("decode", "encode")]
+
+
+def _as_harness_record(prec):
+    from portbench.harness import Record
+
+    return Record(prec.direction, 1.0, 1.0, [], 0, prec.pixels, [], None,
+                  {}, "cpu", prec)
+
+
+@pytest.mark.parametrize("name", sorted(program.READERS))
+def test_metric_files_read_as_program_readers(name):
+    """Each benchmark metric over the program's record reads what
+    ``program.READERS`` reads, in the cells of either direction."""
+    from portbench.spec import Spec
+
+    read = Spec().reader(name)
+    got = [read(_as_harness_record(p)) for p in _both_directions()]
+    assert got == [program.READERS[name](p) for p in _both_directions()]
+    assert any(v is not None for v in got)
+    assert read(_as_harness_record(_both_directions()[0])._replace(
+        program=None)) is None
+
+
+def test_fields_rows_per_px():
+    from portbench.spec import Spec
+
+    read = Spec().reader("fields_rows_per_px.encode")
+    dec, enc = (_as_harness_record(p) for p in _both_directions())
+    assert read(enc) == 1.0 and read(dec) is None
+
+
+class _Kineto:
+    def __init__(self, name, dtype, start, end):
+        self._n, self._d, self._s, self._e = name, dtype, start, end
+
+    def name(self):
+        return self._n
+
+    def device_type(self):
+        return self._d
+
+    def start_ns(self):
+        return self._s
+
+    def duration_ns(self):
+        return self._e - self._s
+
+
+def test_program_ranges_are_not_device_work():
+    """The program's spans, mirrored on the device's timeline while a
+    profile runs, are neither device ops nor launches."""
+    from types import SimpleNamespace
+
+    from portbench.trace import read_profile
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [_Kineto("portbench:call", cpu, 0, 1000),
+              _Kineto("portbench:call", cuda, 0, 1000),
+              _Kineto("qoipp:decode.boundary", cpu, 10, 500),
+              _Kineto("qoipp:decode.boundary", cuda, 10, 500),
+              _Kineto("scan_kernel", cuda, 20, 40)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    t = read_profile(prof, 1)
+    assert [e.name for e in t.device] == ["scan_kernel"]
+    assert [e.name for e in t.spans] == ["call"]

@@ -15,6 +15,8 @@ from contextlib import contextmanager
 from typing import List, NamedTuple, Optional
 
 SPAN_PREFIX = "portbench:"
+# the program's own spans as profiler ranges (qoipp_tpu_torch.utils.tracing)
+PROGRAM_PREFIX = "qoipp:"
 
 # the program's own kernels (qoipp_tpu_torch/csrc), by function name
 PORT_KERNELS = (
@@ -152,7 +154,8 @@ def read_profile(prof, calls: int) -> DeviceTrace:
             # annotation: the host's copy is the span, neither is work
             if dtype != DeviceType.CUDA:
                 spans.append(Event(name[len(SPAN_PREFIX):], start, end))
-        elif dtype == DeviceType.CUDA:
+        elif dtype == DeviceType.CUDA and not name.startswith(
+                PROGRAM_PREFIX):  # the program's spans, mirrored likewise
             device.append(Event(name, start, end))
     call_spans = [s for s in spans if s.name == "call"]
     if not call_spans:
