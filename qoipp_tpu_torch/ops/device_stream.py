@@ -21,6 +21,20 @@ chunk on the host.
   last-writer summaries.
 
 Each window's output comes to the host in one bulk fetch.
+
+Spans and counters (``utils/tracing``): the decoder's ``host.plan``
+(``plan_window``), its upload through ``stage_h2d`` (``host.upload``), the
+window's device work as ``decode.window`` (its boundary passes; the
+fields, fixpoint rounds and placement are the spans inside it) and its
+fetch (``host.fetch``, from the ``masked_select`` that sizes it to the
+numpy array: ``d2h_bytes`` and one ``host_syncs``); a counter
+``stream_windows`` of one a window, ``stream_rounds`` (the window's seam
+fixpoint rounds) and ``stream_lanes`` (its segments).  The encoder's
+pageable upload of each window (``host.upload``: ``h2d_bytes``,
+``h2d_pageable_bytes``), ``stream.carry`` around ``lane_carries``, E1 as
+``encode.fields`` (``fields_rows``: L x n pixel slots), K3 as
+``encode.compact``, the offsets, K4 and the mask as ``encode.emit``, and
+its fetch as the decoder's, with ``stream_windows`` one a window.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from ..common import (
 from ..convert import resolve_device
 from ..models.packed import _round_up
 from ..models.split import _compact_cap, _decode_window_lanes
+from ..utils import tracing
 from ..utils.transport import stage_h2d
 from . import boundary, place_kernel
 from . import replay_kernel as rk
@@ -112,6 +127,7 @@ class DeviceStreamDecoder:
         return Result.ok(dataclasses.replace(self._desc,
                                              channels=self._target))
 
+    @tracing.traced("host.plan")
     def plan_window(self, win: bytes):
         """The host plan of one byte window: (regions (L, qb + 8) uint8,
         seg_lens (L,) int32, byte offsets of the segments, qb, qc, n_cap,
@@ -149,12 +165,17 @@ class DeviceStreamDecoder:
         nseg = len(offs) - 1
         lanes = regions.shape[0]
         dev = self.device
-        packed, n_pix, consumed, prev, seen, rounds = _decode_window_lanes(
-            stage_h2d(regions, dev),
-            torch.from_numpy(seg_lens).to(dev), self._prev, self._seen,
-            lanes, qb=qseg, n_cap=n_cap, qc=qc)
+        regions = stage_h2d(regions, dev)
+        with tracing.span("decode.window"):
+            packed, n_pix, consumed, prev, seen, rounds = (
+                _decode_window_lanes(
+                    regions, torch.from_numpy(seg_lens).to(dev), self._prev,
+                    self._seen, lanes, qb=qseg, n_cap=n_cap, qc=qc))
         self.windows.append(dict(lanes=nseg, qb=qseg, qc=qc, n_cap=n_cap,
                                  rounds=rounds, max_chain=lanes))
+        tracing.count("stream_windows")
+        tracing.count("stream_rounds", rounds)
+        tracing.count("stream_lanes", nseg)
         total_consumed = int(offs[nseg - 1]) + int(consumed[nseg - 1])
         if total_consumed == 0:
             return np.zeros(0, np.uint8), 0
@@ -162,9 +183,12 @@ class DeviceStreamDecoder:
         # ONE bulk fetch: every lane's live pixels, in lane order, already
         # in the target channels
         col = torch.arange(n_cap, device=dev)[None, :]
-        live = packed.masked_select(col < n_pix[:, None])
-        return (packed_to_pixels(live, int(self._target)).cpu().numpy(),
-                total_consumed)
+        with tracing.span("host.fetch"):
+            live = packed.masked_select(col < n_pix[:, None])
+            out = packed_to_pixels(live, int(self._target)).cpu().numpy()
+        tracing.count("d2h_bytes", out.nbytes)
+        tracing.count("host_syncs")
+        return out, total_consumed
 
     def decode_window(self, data) -> Result[np.ndarray]:
         """Consume a byte window (chunks only, no header or end marker);
@@ -213,24 +237,27 @@ def _encode_rows(packed, v, prev_in, run_in, seen_in, channels: int):
     (64, L), E1's)."""
     n = packed.shape[1]
     dev = packed.device
-    tlo, thn, run_out, seen_out = encode_fields_planes(
-        packed, v, channels, prev_in, run_in, seen_in)
+    with tracing.span("encode.fields"):
+        tracing.count("fields_rows", packed.shape[0] * n)
+        tlo, thn, run_out, seen_out = encode_fields_planes(
+            packed, v, channels, prev_in, run_in, seen_in)
     # the pixels that emit bytes: differing pixels and RUN-62 flushes
     cap = _round_up(n + 1, 128)
     (tlo_c, thn_c), counts = compact_rows((tlo, thn), (thn >> 16) != 0, cap)
-    rows = torch.arange(cap, device=dev)[None, :]
-    live = rows < counts[:, None]
-    # a 1-byte sentinel row at counts keeps the last real row a covered
-    # row in K4 (excluded from the length); rows past it emit nothing
-    tlo_c = torch.where(live, tlo_c, 0)
-    thn_c = torch.where(live, thn_c,
-                        (rows == counts[:, None]).to(torch.int32) << 16)
-    off, end = row_offsets(thn_c >> 16, 0)
-    lens = end - 1
-    out_cap = _round_up((channels + 1) * n + 64, EMIT_WIN)
-    out = emit_bytes(off, tlo_c, thn_c, out_cap)
-    col = torch.arange(out_cap, device=dev)[None, :]
-    out = torch.where(col < lens[:, None], out, 0)
+    with tracing.span("encode.emit"):
+        rows = torch.arange(cap, device=dev)[None, :]
+        live = rows < counts[:, None]
+        # a 1-byte sentinel row at counts keeps the last real row a covered
+        # row in K4 (excluded from the length); rows past it emit nothing
+        tlo_c = torch.where(live, tlo_c, 0)
+        thn_c = torch.where(live, thn_c,
+                            (rows == counts[:, None]).to(torch.int32) << 16)
+        off, end = row_offsets(thn_c >> 16, 0)
+        lens = end - 1
+        out_cap = _round_up((channels + 1) * n + 64, EMIT_WIN)
+        out = emit_bytes(off, tlo_c, thn_c, out_cap)
+        col = torch.arange(out_cap, device=dev)[None, :]
+        out = torch.where(col < lens[:, None], out, 0)
     return out, lens, run_out, seen_out
 
 
@@ -334,8 +361,9 @@ def _encode_window_lanes(raw_u8, n_px: int, prev_c, run_c, seen_c,
     concat(out[l][:lens[l]])."""
     packed_flat = pixels_to_packed(raw_u8, channels)
     packed = packed_flat.reshape(lanes, nb // lanes)
-    v, prev_in, run_in, seen_in = lane_carries(packed, n_px, prev_c, run_c,
-                                               seen_c)
+    with tracing.span("stream.carry"):
+        v, prev_in, run_in, seen_in = lane_carries(packed, n_px, prev_c,
+                                                   run_c, seen_c)
     out, lens, run_out, seen_out = _encode_rows(packed, v, prev_in, run_in,
                                                 seen_in, channels)
     last = n_px - 1
@@ -398,7 +426,10 @@ class DeviceStreamEncoder:
         for s in range(0, n, self.window_px):
             cnt = min(self.window_px, n - s)
             buf[: cnt * ch] = raw[s * ch : (s + cnt) * ch]
-            raw_t = torch.from_numpy(buf).to(self.device)
+            with tracing.span("host.upload"):  # a plain (pageable) copy
+                tracing.count("h2d_bytes", buf.nbytes)
+                tracing.count("h2d_pageable_bytes", buf.nbytes)
+                raw_t = torch.from_numpy(buf).to(self.device)
             if self.split_lanes > 1:
                 out, lens, *carry = _encode_window_lanes(
                     raw_t, cnt, self._prev, self._run, self._seen,
@@ -411,8 +442,12 @@ class DeviceStreamEncoder:
             self._prev, self._run, self._seen = carry
             # ONE bulk fetch of the window's bytes, lanes in order
             col = torch.arange(out.shape[1], device=out.device)[None, :]
-            out_parts.append(out.masked_select(col < lens[:, None])
-                             .cpu().numpy())
+            with tracing.span("host.fetch"):
+                part = out.masked_select(col < lens[:, None]).cpu().numpy()
+            tracing.count("d2h_bytes", part.nbytes)
+            tracing.count("host_syncs")
+            tracing.count("stream_windows")
+            out_parts.append(part)
         return Result.ok(_joined(out_parts))
 
     def has_run_count(self) -> bool:

@@ -2,7 +2,8 @@
 default, spans nested per thread, requests stamped on spans and
 counters, the span names of the benchmarked paths (BatchPipeline decode
 and encode, ServingCodec decode and encode over tiles of the committed
-corpus), counters equal to what the code returns or moves, outputs
+corpus, the streaming codec's sessions over a tile of the 1080p photo),
+counters equal to what the code returns or moves, outputs
 byte-identical with tracing on and off, and the ``qoipp:`` ranges in a
 torch profiler's trace."""
 
@@ -19,6 +20,7 @@ from qoipp_tpu_torch.common import Channels, Desc
 from qoipp_tpu_torch.models.packed import PackedEncoder
 from qoipp_tpu_torch.models.pipeline import BatchPipeline
 from qoipp_tpu_torch.models.serving import ServingCodec
+from qoipp_tpu_torch.ops import device_stream
 from qoipp_tpu_torch.utils import timing, tracing
 
 torch.set_num_threads(1)
@@ -92,6 +94,31 @@ def _serving_encode():
     return b"".join(o.tobytes() for o in outs)
 
 
+def _photo(w=96, h=64):
+    """A w x h tile of the committed 1080p photo: its RGB pixels, Desc
+    and stream."""
+    data = np.fromfile(CORPUS / "photo_china_1080p.qoi", np.uint8)
+    d = oracle.read_header(data)
+    px = oracle.decode(data, d, d.channels).reshape(d.height, d.width, 3)
+    tile = np.ascontiguousarray(px[400: 400 + h, 800: 800 + w]).reshape(-1)
+    td = Desc(w, h, Channels.RGB)
+    return tile, td, oracle.encode(tile, td)[0]
+
+
+def _stream_decode():
+    # 4 KiB windows fed 1,000 bytes at a time: torn chunks at the seams
+    _, _, blob = _photo()
+    out, _ = device_stream.stream_decode(blob, 4096, feed=1000,
+                                         device="cpu")
+    return out.tobytes()
+
+
+def _stream_encode():
+    raw, desc, _ = _photo()
+    return device_stream.stream_encode(raw, desc, 1000, split_lanes=8,
+                                       device="cpu")
+
+
 PATHS = {
     "batch_decode": (_batch_decode, {
         "host.pack_streams", "host.upload", "decode.boundary",
@@ -107,6 +134,12 @@ PATHS = {
         "host.route", "host.plan", "host.upload", "host.fetch", "host.sync",
         "host.unpack", "encode.positions", "encode.fields", "encode.compact",
         "encode.templates", "encode.emit"}),
+    "stream_decode": (_stream_decode, {
+        "host.plan", "host.upload", "host.fetch", "host.sync",
+        "decode.window", "decode.fields", "decode.replay", "decode.place"}),
+    "stream_encode": (_stream_encode, {
+        "host.upload", "stream.carry", "encode.fields", "encode.compact",
+        "encode.emit", "host.fetch"}),
 }
 
 
@@ -259,6 +292,60 @@ def test_serving_encode_counters_equal_what_it_moves():
         s.name in ("host.fetch", "host.sync") for s in tr.spans)
     assert cnt["template_rows"] > 0
     assert "packed_recodes" not in cnt
+
+
+def test_stream_decode_counters_equal_what_it_returns():
+    raw, _, blob = _photo()
+    dec = device_stream.DeviceStreamDecoder(4096, device="cpu")
+    body = blob[14:-8]
+    with tracing.collect() as tr:
+        dec.initialize(blob[:14]).value()
+        parts = [dec.decode_window(body[i: i + 1000]).value()
+                 for i in range(0, body.size, 1000)]
+    assert np.concatenate(parts).tobytes() == raw.tobytes()
+    cnt = {k: v for (_, k), v in tr.counters.items()}
+    names = [s.name for s in tr.spans]
+    assert cnt["stream_windows"] == len(dec.windows) > 1
+    assert cnt["stream_rounds"] == sum(w["rounds"] for w in dec.windows)
+    assert cnt["stream_lanes"] == sum(w["lanes"] for w in dec.windows)
+    assert cnt["d2h_bytes"] == sum(p.nbytes for p in parts)
+    # a plan and an upload a window, a fetch a window that completed a
+    # chunk (one that holds only a torn chunk fetches nothing), a flag
+    # read a round
+    for name in ("host.plan", "host.upload", "decode.window"):
+        assert names.count(name) == len(dec.windows), name
+    fetches = names.count("host.fetch")
+    assert 0 < fetches <= len(dec.windows)
+    assert names.count("host.sync") == cnt["stream_rounds"]
+    assert cnt["host_syncs"] == fetches + cnt["stream_rounds"]
+
+
+@pytest.mark.parametrize("lanes", (1, 8))
+def test_stream_encode_counters_equal_what_it_moves(lanes):
+    raw, desc, blob = _photo()
+    enc = device_stream.DeviceStreamEncoder(1000, split_lanes=lanes,
+                                            device="cpu")
+    step = 4096 * 3  # 4,096 pixels a call: five windows, then three
+    with tracing.collect() as tr:
+        head = enc.initialize(desc).value()
+        parts = [enc.encode_window(raw[i: i + step]).value()
+                 for i in range(0, raw.size, step)]
+        tail = enc.finalize().value()
+    stream = head + b"".join(p.tobytes() for p in parts) + tail
+    assert stream == blob.tobytes()
+    windows = sum(-(-min(step, raw.size - i) // 3 // 1000)
+                  for i in range(0, raw.size, step))
+    cnt = {k: v for (_, k), v in tr.counters.items()}
+    names = [s.name for s in tr.spans]
+    assert cnt["stream_windows"] == windows == 8
+    assert cnt["d2h_bytes"] == sum(p.nbytes for p in parts)
+    up = windows * enc.nb * 3
+    assert cnt["h2d_bytes"] == up and cnt["h2d_pageable_bytes"] == up
+    assert cnt["fields_rows"] == windows * enc.nb
+    assert cnt["host_syncs"] == names.count("host.fetch") == windows
+    for name in ("host.upload", "encode.fields", "encode.emit"):
+        assert names.count(name) == windows, name
+    assert names.count("stream.carry") == (windows if lanes > 1 else 0)
 
 
 @pytest.mark.parametrize("noise,recodes", [(False, 0), (True, 1)])
