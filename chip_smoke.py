@@ -4,9 +4,10 @@
     python3 chip_smoke.py        # from the root of the repository
 
 0. prints the card (nvidia-smi name and power limit), torch and CUDA;
-1. builds the fifteen CUDA kernels from qoipp_tpu_torch/csrc (thirteen
-   sources, one nvcc each, started together) and the native oracle from
-   native/qoi_ref.cpp;
+1. builds the sixteen CUDA kernels from qoipp_tpu_torch/csrc (the fifteen
+   that replace the JAX package's Pallas kernels and the chunk-start scan;
+   fourteen sources, one nvcc each, started together) and the native
+   oracle from native/qoi_ref.cpp;
 2. checks each kernel against its plain PyTorch version on edge cases,
    bit-exact (tolerance 0; E9's float32 bins within 1e-6);
 3. drives four paths, each against the oracle, bit-exact:
@@ -71,7 +72,7 @@
 4. requires each kernel of each path to have launched in that path's run
    (counts set to 0 just before each run and read just after; a parallel
    path's counts are its ranks', each taken over the path's run alone and
-   summed);
+   summed), the chunk-start scan on every decode path;
 5. checks each kernel against its plain version again at its path's
    shapes and times both (E2-E6 beside K2, E7 beside K4 on the same
    inputs, E2-E6 also in device time beside K2's and E7 beside K4's, with
@@ -87,7 +88,11 @@
    the batch and the split path's whole output and E1 at both
    stream-encode shapes and, logged only, at 8 batch RGB images, each
    also in device time (torch.profiler) and beside its first build's
-   time; K3 as the whole compact_rows call (device time by kernel group,
+   time; the chunk-start scan on 128 rows of the batch RGB regions
+   (batch1080_decode's shape) and on one 1 MiB window of the streaming
+   decoder (the (96, qb + 8) plane's view), event, device and plain ms,
+   its bound (2 bytes a byte) and the device ops a call; K3 as the whole
+   compact_rows call (device time by kernel group,
    beside its first build's time) and K6 also in device time, both with
    their launch configuration and ptxas report; the batch encoder on the
    batch RGB corpus at the default and at tight caps (chunk_cap under
@@ -208,6 +213,7 @@ from qoipp_tpu_torch.models import serving, split  # noqa: E402
 from qoipp_tpu_torch.models.pipeline import BatchPipeline  # noqa: E402
 from qoipp_tpu_torch.ops import (  # noqa: E402
     backend,
+    boundary,
     compact_kernel,
     decode as dec_ops,
     device_stream,
@@ -280,6 +286,8 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                   "benchmarks/profile_r2.py:161"),
     "onehot_place": ("qoipp_tpu_torch/csrc/probes.cu",
                      "benchmarks/profile_r2.py:191"),
+    "chunk_starts": ("qoipp_tpu_torch/csrc/boundary.cu",
+                     "none: qoipp_tpu/ops/boundary.py scans in plain JAX"),
 }
 # 32-bit operations per element of each kernel's work (per row and lane for
 # the replays: class decode, selects, per-byte add, hash, table write; per
@@ -324,6 +332,10 @@ STREAM_ENCODE = ((1 << 18, 1, "sparse"), (1 << 20, 16, "sparse"),
 FIELDS_SHAPES = ((1, 1 << 18), (16, 1 << 16))  # the two encode windows
 FIELDS_BATCH = 8  # E1's logged third shape: 8 batch RGB images
 PROBE_RUNS = 5  # timed calls per profile_r2 probe
+# the chunk-start scan's phase 5 shapes: batch1080_decode's rows (the batch
+# RGB corpus's regions repeated) and one streaming decoder window
+SCAN_BATCH = 128
+SCAN_WINDOW = 1 << 20
 CORPUS_DIR = Path(__file__).resolve().parent / "tests" / "resources" / \
     "local_corpus"
 CORPUS_STREAMS = 16  # the committed real corpus
@@ -573,11 +585,12 @@ def phase3_stream(s, dev):
 
 
 def _stream_needs(s):
-    """The kernels a streaming session must launch: decode K5 and K2 (and
-    K3 where a window took the chunk domain), encode E1, K3 and K4."""
+    """The kernels a streaming session must launch: decode the chunk-start
+    scan, K5 and K2 (and K3 where a window took the chunk domain), encode
+    E1, K3 and K4."""
     if s["kind"] == "encode":
         return ("fields", "compact", "emit")
-    return ("replay_summary", "place_fill") + (
+    return ("chunk_starts", "replay_summary", "place_fill") + (
         ("compact",) if any(w["qc"] for w in s["windows"]) else ())
 
 
@@ -1094,6 +1107,73 @@ def phase5_replay_probe(run, sparse, rows, card):
             row["class_probe"] = [
                 {k: p[k] for k in ("rows", "state_rows", "ms", "ns_per_row")}
                 for p in probe if p["kernel"] == row["name"]]
+
+
+def _scan_time(regions, what, card):
+    """The chunk-start scan on regions against its plain version, one
+    launch a call, then both timed: event ms, device ms and device ops a
+    call (torch.profiler), plain ms, and the bound (each byte read, each
+    flag written)."""
+    err = selfcheck.chunk_starts_err(regions)
+    expect(err == 0, f"chunk_starts disagrees with its plain version on "
+           f"{what}")
+    before = kernels.LAUNCHES["chunk_starts"]
+    boundary.chunk_starts_batch(regions)
+    expect(kernels.LAUNCHES["chunk_starts"] == before + 1,
+           f"chunk_starts launched other than once a call on {what}")
+    ms = timed_ms(lambda: boundary.chunk_starts_batch(regions))
+    groups = profile.profile_path(
+        lambda: boundary.chunk_starts_batch(regions), calls=20,
+        warmup=1)["groups"]
+    expect("boundary scan" in groups, "the profiler saw no chunk_starts "
+           "kernel")
+    plain_ms = timed_ms(
+        lambda: boundary.chunk_starts_batch_plain(regions))
+    b, qb = regions.shape
+    bound_s, bound_by = bound(2 * b * qb, 0)
+    out = dict(err=err, ms=ms, device_ms=groups["boundary scan"][0],
+               ops_a_call=sum(n for _, n in groups.values()),
+               plain_ms=plain_ms, bound_ms=bound_s * 1e3, bytes=2 * b * qb,
+               shape=f"{b} x {qb}, row stride {regions.stride(0)}")
+    log(f"phase 5: chunk_starts ({what}: {out['shape']}): {ms:.4f} ms, "
+        f"device {out['device_ms']:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{out['bound_ms']:.5f} ms ({bound_by}), share "
+        f"{out['bound_ms'] / out['device_ms']:.3f}; device ops a call "
+        f"{out['ops_a_call']:g} (the kernel and its status words' fill); on "
+        f"{card}")
+    return out
+
+
+def phase5_chunk_starts(run, sparse, launches, dev, card):
+    """The chunk-start scan at batch1080_decode's shape (SCAN_BATCH rows of
+    the batch RGB corpus's regions) and on the streaming decoder's first
+    SCAN_WINDOW window of the sparse split stream (the (L, qb + 8) plane's
+    view, as _decode_window_lanes reads it); its launch configuration and
+    ptxas report logged."""
+    pipe = run["pipe"]
+    q = torch.arange(pipe.qb, device=dev)[None, :]
+    reg = torch.where(q < (run["sizes"] - 14)[:, None],
+                      run["streams"][:, 14: 14 + pipe.qb], 0)
+    reg = reg.repeat(-(-SCAN_BATCH // reg.shape[0]), 1)[:SCAN_BATCH]
+    batch = _scan_time(reg.contiguous(), "batch1080_decode's shape", card)
+    dec = device_stream.DeviceStreamDecoder(device=dev)
+    blob = sparse["blob"]
+    expect(bool(dec.initialize(blob[:14].tobytes())), "the stream decoder "
+           "refused the sparse stream's header")
+    plane, _, _, qseg, *_ = dec.plan_window(
+        blob[14: 14 + SCAN_WINDOW].tobytes())
+    window = _scan_time(torch.from_numpy(plane).to(dev)[:, :qseg],
+                        "a stream window", card)
+    tile = boundary.scan_tile()
+    log(f"phase 5: chunk_starts launch: B x ceil(Qb / {tile}) blocks of "
+        f"{tile // 16} threads, 16 bytes a thread; ptxas: "
+        f"{ptxas_of('chunk_starts_kernel')}")
+    batch.pop("bound_ms")  # the row's own, from the bytes
+    return _kernel_row(
+        "chunk_starts", launches["chunk_starts"],
+        max(batch.pop("err"), window.pop("err")), batch.pop("ms"),
+        batch.pop("plain_ms"), batch.pop("bytes"), 0, **batch,
+        **{f"window_{k}": v for k, v in window.items() if k != "bytes"})
 
 
 def phase5_logfill(run, launches, dev, card):
@@ -1991,11 +2071,15 @@ _RECORDED = {
     "place_fill": ("place_fill", place_kernel.place_fill_reference),
     "encode_fields_planes": ("fields", _fields_plain),
     "compact_rows": ("compact", compact_kernel.compact_rows_reference),
-    "emit_bytes": ("emit", emit_kernel.emit_bytes_reference)}
+    "emit_bytes": ("emit", emit_kernel.emit_bytes_reference),
+    "chunk_starts_batch": ("chunk_starts",
+                           boundary.chunk_starts_batch_plain)}
 # where dp decode and encode (BatchPipeline; the batch encoder's
-# chunk_fields imports E1 from its module when called) and sp encode
+# chunk_fields imports E1 from its module when called; the boundary pass
+# finds the chunk-start scan in its own module) and sp encode
 # (ops/device_stream._encode_rows) look them up
-_DP_CALLS = ((replay_kernel, ("replay_batch_carry",)),
+_DP_CALLS = ((boundary, ("chunk_starts_batch",)),
+             (replay_kernel, ("replay_batch_carry",)),
              (place_kernel, ("place_fill",)),
              (fields_kernel, ("encode_fields_planes",)),
              (enc_ops, ("compact_rows", "emit_bytes")))
@@ -2003,8 +2087,10 @@ _SP_ENCODE_CALLS = ((device_stream, ("encode_fields_planes", "compact_rows",
                                      "emit_bytes")),)
 # where the tools and examples reach them: the one-shot codec
 # (ops/decode, ops/encode), BatchPipeline, SplitDecoder and the split
-# windows (models/split), the device stream codecs and ServingCodec
-_TOOLS_CALLS = ((replay_kernel, ("replay_batch_carry", "replay_batch_summary",
+# windows (models/split), the device stream codecs and ServingCodec; the
+# chunk-start scan in ops/boundary, where every decode path finds it
+_TOOLS_CALLS = ((boundary, ("chunk_starts_batch",)),
+                (replay_kernel, ("replay_batch_carry", "replay_batch_summary",
                                  "logfill_batch")),
                 (place_kernel, ("place_fill",)),
                 (compact_kernel, ("compact_rows",)),
@@ -2695,17 +2781,20 @@ def main():
     oneshot = phase3_prepare_oneshot(runs, dev)
     launches = {}
     drive("the batch path", lambda: phase3_main_path(runs),
-          ("replay", "place_fill", "fields", "compact", "emit"), launches)
+          ("chunk_starts", "replay", "place_fill", "fields", "compact",
+           "emit"), launches)
     sparse, dense = split_runs
     drive("the split path (sparse)", lambda: phase3_split(sparse),
-          ("replay_summary", "compact", "place_fill"), launches)
-    drive("the split path (dense)", lambda: phase3_split(dense),
-          ("replay_summary", "place_fill"), launches)
-    drive("the one-shot path (decode rgb)",
-          lambda: phase3_oneshot_decode(oneshot[0]), ("replay", "logfill"),
+          ("chunk_starts", "replay_summary", "compact", "place_fill"),
           launches)
+    drive("the split path (dense)", lambda: phase3_split(dense),
+          ("chunk_starts", "replay_summary", "place_fill"), launches)
+    drive("the one-shot path (decode rgb)",
+          lambda: phase3_oneshot_decode(oneshot[0]),
+          ("chunk_starts", "replay", "logfill"), launches)
     drive("the one-shot path (decode rgba)",
-          lambda: phase3_oneshot_decode(oneshot[1]), ("replay",), launches)
+          lambda: phase3_oneshot_decode(oneshot[1]),
+          ("chunk_starts", "replay"), launches)
     drive("the one-shot path (encode rgb)",
           lambda: phase3_oneshot_encode(oneshot[0]),
           ("fields", "compact", "emit"), launches)
@@ -2729,16 +2818,19 @@ def main():
           ("grid_step", "onehot_place"), launches)
     serve = phase3_prepare_serving(dev)
     drive("the serving path", lambda: phase3_serving(serve),
-          ("replay", "place_fill", "replay_summary", "fields", "compact",
-           "emit"), launches)
+          ("chunk_starts", "replay", "place_fill", "replay_summary",
+           "fields", "compact", "emit"), launches)
     drive("the packed lanes", lambda: phase3_packed(serve, dev),
-          ("replay", "place_fill", "compact", "emit"), launches)
+          ("chunk_starts", "replay", "place_fill", "compact", "emit"),
+          launches)
     drive("the api torch backend", lambda: phase3_api(serve, dev),
-          ("replay", "logfill", "fields", "compact", "emit"), launches)
+          ("chunk_starts", "replay", "logfill", "fields", "compact",
+           "emit"), launches)
     par = phase3_parallel(runs[0], dev)
     phase4_parallel(par, launches)
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
+    rows.append(phase5_chunk_starts(runs[0], sparse, launches, dev, card))
     k5, k2_split = phase5_split_kernels(sparse, launches, card)
     rows.append(k5)
     k2 = next(r for r in rows if r["name"] == "place_fill")

@@ -1,11 +1,16 @@
 #!/usr/bin/env python
 """The two-level boundary scan on the card, beside the shipped one.
 
+Superseded: on CUDA tensors the shipped ``ops/boundary.chunk_starts_batch``
+is now one kernel (csrc/boundary.cu, one launch a call), so this
+experiment stays as an independent formulation that the card tests hold
+against it, and is never wired in.
+
 Counterpart of the repository's ``benchmarks/expt_boundary2l.py``.  The
-shipped ``ops/boundary.chunk_starts_batch`` runs two BLOCK=128-step loops
-(the block phase maps, then the byte replay) around a log-depth compose
-across blocks: in torch each step is a few elementwise launches, ~900 in
-all, a large share of a decode's host time.  Phase maps over {0..4}
+plain ``ops/boundary.chunk_starts_batch_plain`` runs two BLOCK=128-step
+loops (the block phase maps, then the byte replay) around a log-depth
+compose across blocks: in torch each step is a few elementwise launches,
+~900 in all, a large share of a decode's host time.  Phase maps over {0..4}
 compose associatively, so each block's 128-step loop can itself be
 hierarchical: M=16-step loops build micro maps, log2(128 / M) = 3 compose
 levels merge a block's 8 micro maps, and the replay runs M steps from
@@ -14,9 +19,10 @@ one-hot selects of the script's compose and apply are ``torch.gather``
 here (one launch for five selects); the result is bit-identical by
 construction, and this module holds it so on the script's adversarial
 byte soup (``_rand_streams``, a byte-equal copy) and on a real batch's
-regions before it times both: CUDA-event ms, device ms and launches
-(torch.profiler) a call, at the script's production shape (B=128 x
-749,568 bytes: 4 soup streams tiled 32 times).
+regions before it times it beside the kernel and the plain loops:
+CUDA-event ms, device ms and launches (torch.profiler) a call, at the
+script's production shape (B=128 x 749,568 bytes: 4 soup streams tiled 32
+times).
 
     python -m qoipp_tpu_torch.benchmarks.expt_boundary2l [--batch 128]
     python -m qoipp_tpu_torch.benchmarks.expt_boundary2l --device cpu --runs 0
@@ -143,9 +149,11 @@ def batch_regions(dev, b: int = 2, w: int = 64, h: int = 48):
 
 
 def timed(regions, runs: int) -> dict:
-    """Both scans on regions, measured (stages.measure)."""
+    """The shipped scan (the kernel on the card), its plain loops and the
+    two-level scan on regions, measured (stages.measure)."""
     out = {}
     for name, fn in (("shipped", boundary.chunk_starts_batch),
+                     ("plain", boundary.chunk_starts_batch_plain),
                      ("two-level", chunk_starts_batch_2l)):
         out[name] = S.measure(lambda fn=fn: fn(regions), runs)
         r = out[name]

@@ -1,7 +1,9 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
-The port's fifteen kernels live in ``qoipp_tpu_torch/csrc`` as CUDA C++ for
-sm_90a behind a plain C interface.  On first use they are built with
+The port's kernels (the fifteen that replace the JAX package's Pallas
+kernels, and the chunk-start scan of ``ops/boundary``) live in
+``qoipp_tpu_torch/csrc`` as CUDA C++ for sm_90a behind a plain C
+interface.  On first use they are built with
 ``nvcc`` (one compiler process per source, all at once, then one link)
 into ``build/qoipp_tpu_torch/libqoipp_kernels.so`` at the root of the
 checkout (rebuilt whenever a source is newer than the library) and loaded
@@ -31,7 +33,7 @@ LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
            "logfill.cu", "fields.cu", "place_window.cu", "place_fill2.cu",
            "place_grouped.cu", "place_narrow.cu", "place_variant.cu",
-           "emit_window.cu", "probes.cu")
+           "emit_window.cu", "probes.cu", "boundary.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -40,7 +42,8 @@ LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
             "replay_summary": 0, "logfill": 0, "fields": 0,
             "place_wide": 0, "place_fill2": 0, "place_fill_narrow": 0,
             "place_variant": 0, "place_grouped": 0, "emit_window": 0,
-            "grid_step": 0, "onehot_place": 0, "dep_chain": 0}
+            "grid_step": 0, "onehot_place": 0, "dep_chain": 0,
+            "chunk_starts": 0}
 
 _P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_uint32)
@@ -90,6 +93,10 @@ _SIGNATURES = {
     "qk_onehot_place": [_P] * 3 + [_I, _L, _I, _P],
     # out, x, a, b, rounds, stream
     "qk_dep_chain": [_P, _U, _U, _U, _L, _P],
+    # regions, their row stride, out, status, nstatus, B, Qb, stream
+    "qk_chunk_starts": [_P, _L, _P, _P, _L, _I, _L, _P],
+    # bytes a block
+    "qk_chunk_starts_tile": [],
 }
 
 _lock = threading.Lock()

@@ -92,6 +92,17 @@ bit-exact.  The cases:
               loads), and beside an interior run of 3,000 rows (its last
               row emits the 4 bytes up to the trailing run) or after one
               of 2,500;
+  chunk_starts (the chunk-start scan; the whole output): the two-level
+              experiment's byte soup (every length class, tags in the
+              payloads) at every
+              CHUNK_STARTS_SHAPES (one 128-byte block, a tile of the
+              kernel, a tile and a block: a warp that ends inside the
+              row, 70 tiles: look-back steps of 32 tiles), rows of one
+              tag alone (every byte a start, LUMA, RGB and RGBA chains
+              across every tile), RGBA tags with a 1-byte tag every
+              seventh byte, and views of wider planes whose rows are 16-,
+              8-, 4- and 1-byte aligned (the stream window's (L, qb + 8)
+              planes among them);
   grid_step (E8): random words and 0xFFFFFFFF, which wraps to 0;
   onehot_place (E9, to TOLERANCE): unsorted targets, a bin hit 64 times,
               targets outside the bins, K not a multiple of the block.
@@ -107,8 +118,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import (compact_kernel, emit_kernel, emit_window, encode,
-                   fields_kernel, place_kernel, place_window, probes,
+from ..ops import (boundary, compact_kernel, emit_kernel, emit_window,
+                   encode, fields_kernel, place_kernel, place_window, probes,
                    replay_kernel)
 from ..ops.bitops import hash6
 
@@ -1023,13 +1034,60 @@ def _onehot_place(device) -> float:
     return float((got - probes.onehot_place_reference(tt, tv, s)).abs().max())
 
 
+# (B, Qb) of the chunk-start scan's byte soup, around its 4,096-byte tile
+CHUNK_STARTS_SHAPES = ((1, 128), (3, 512), (2, 37 * 128), (1, 4096),
+                       (2, 4096 + 128), (2, 70 * 4096 + 128))
+CHUNK_STARTS_FILLS = (0x00, 0x80, 0xFE, 0xFF)  # one tag a row: len 1, 2, 4, 5
+# (first column, bytes after the row) of the wider planes whose views the
+# scan reads: rows 16-byte aligned, then 8 (the stream window's qb + 8), 4
+# and 1
+CHUNK_STARTS_VIEWS = ((0, 0), (0, 8), (0, 4), (1, 7))
+
+
+def chunk_starts_err(regions) -> int:
+    """|kernel - plain| of the chunk-start scan on regions."""
+    return max_abs_err(boundary.chunk_starts_batch(regions),
+                       boundary.chunk_starts_batch_plain(regions))
+
+
+def strided_view(host: np.ndarray, device, first: int, after: int):
+    """host (B, Qb) as the [:, first:first + Qb] view of a (B, first + Qb +
+    after) plane on device."""
+    b, qb = host.shape
+    plane = np.zeros((b, first + qb + after), np.uint8)
+    plane[:, first:first + qb] = host
+    return _t(plane, device)[:, first:first + qb]
+
+
+def _chunk_starts(device) -> int:
+    # the two-level experiment's byte soup (that package imports this one)
+    from ..benchmarks.expt_boundary2l import _rand_streams
+
+    rng = np.random.default_rng(23)
+    err = 0
+    for b, qb in CHUNK_STARTS_SHAPES:
+        err = max(err, chunk_starts_err(_t(_rand_streams(rng, b, qb),
+                                           device)))
+    for tag in CHUNK_STARTS_FILLS:
+        err = max(err, chunk_starts_err(_t(np.full((2, 9 * 4096 + 256), tag,
+                                                   np.uint8), device)))
+    mixed = np.full((2, 40 * 4096), 0xFF, np.uint8)
+    mixed[:, ::7] = 0x00
+    err = max(err, chunk_starts_err(_t(mixed, device)))
+    soup = _rand_streams(rng, 5, 3 * 4096 + 128)
+    for first, after in CHUNK_STARTS_VIEWS:
+        err = max(err, chunk_starts_err(strided_view(soup, device, first,
+                                                     after)))
+    return err
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
          "emit": _emit, "replay_summary": _replay_summary,
          "logfill": _logfill, "fields": _fields, "place_wide": _place_wide,
          "place_fill2": _place_fill2, "place_fill_narrow": _place_fill_narrow,
          "place_variant": _place_variant, "place_grouped": _place_grouped,
          "emit_window": _emit_window, "grid_step": _grid_step,
-         "onehot_place": _onehot_place}
+         "onehot_place": _onehot_place, "chunk_starts": _chunk_starts}
 
 
 def check(name: str, device):

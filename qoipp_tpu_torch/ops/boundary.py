@@ -1,10 +1,17 @@
-"""Parallel QOI chunk-boundary discovery (plain torch; no kernel).
+"""Parallel QOI chunk-boundary discovery.
 
-The same three-stage phase scan as ``qoipp_tpu.ops.boundary``: the phase
-phi(p) = (next chunk start >= p) - p lies in {0..4} and steps as
+The phase phi(p) = (next chunk start >= p) - p lies in {0..4} and steps as
 
     phi(p+1) = phi(p) - 1      if phi(p) > 0
              = len(p) - 1      if phi(p) == 0   (p starts a chunk)
+
+so a span of bytes is a phase map {0..4} -> {0..4}, and the chunk starts
+are a scan of composed maps.  ``chunk_starts_batch`` launches the CUDA
+kernel csrc/boundary.cu on CUDA tensors (one pass, a decoupled look-back
+across 4 KiB tiles; it replaces no Pallas kernel: the JAX package's scan is
+plain JAX) and takes the plain version on CPU tensors.  The plain version,
+``chunk_starts_batch_plain``, is the same three-stage scan as
+``qoipp_tpu.ops.boundary``:
 
 A: each BLOCK-byte block's phase map {0..4} -> {0..4}, by a BLOCK-step loop
    over a (B, 5, nblk) carry;
@@ -15,8 +22,11 @@ C: a second BLOCK-step loop replays every block from its entry phase.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .. import kernels
 from ..utils import tracing
 
 BLOCK = 128  # bytes per phase block
@@ -33,10 +43,49 @@ def chunk_len_of(tags):
             + 4 * is_rgba.to(torch.int32)).to(torch.uint8)
 
 
+@functools.cache
+def scan_tile() -> int:
+    """Bytes a block of csrc/boundary.cu, read from the built library,
+    which owns it; builds the kernels on first use."""
+    return kernels.library().qk_chunk_starts_tile()
+
+
 def chunk_starts_batch(regions):
     """regions: (B, Qb) uint8 chunk-region bytes (stream bytes from offset
-    14, zero-padded; Qb % BLOCK == 0).  Returns is_start: (B, Qb) bool.
-    Position 0 is by definition the first chunk start."""
+    14, zero-padded; Qb % BLOCK == 0), any row stride, unit column stride.
+    Returns is_start: (B, Qb) bool.  Position 0 is by definition the first
+    chunk start.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel (one
+    launch and the zeroed status words, whatever the shape)."""
+    if regions.device.type == "cpu":
+        return chunk_starts_batch_plain(regions)
+    b, qb = regions.shape
+    dev = regions.device
+    kernels.check(regions, "regions", torch.uint8, (b, qb), dev,
+                  contiguous=False)
+    if qb % BLOCK:
+        raise ValueError(f"region width {qb} is not a multiple of {BLOCK}")
+    if b and qb and regions.stride(1) != 1:
+        raise ValueError(f"regions: column stride {regions.stride(1)}, "
+                         "expected 1")
+    out = torch.empty((b, qb), dtype=torch.bool, device=dev)
+    if not (b and qb):
+        return out
+    # one look-back word per tile, then the ticket counter
+    nstatus = b * -(-qb // scan_tile()) + 1
+    status = torch.zeros(nstatus, dtype=torch.int64, device=dev)
+    kernels.launch("chunk_starts", "qk_chunk_starts", dev, regions.data_ptr(),
+                   regions.stride(0), out.data_ptr(), status.data_ptr(),
+                   nstatus, b, qb)
+    tracing.count("boundary_scans")
+    tracing.count("boundary_scan_bytes", b * qb)
+    return out
+
+
+def chunk_starts_batch_plain(regions):
+    """Plain version of chunk_starts_batch: the BLOCK-step loops above, any
+    device."""
     b, qb = regions.shape
     if qb % BLOCK:
         raise ValueError(f"region width {qb} is not a multiple of {BLOCK}")

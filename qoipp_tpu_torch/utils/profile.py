@@ -52,6 +52,7 @@ GROUPS = (
     ("K4 emit", "emit_kernel"),
     ("K6 logfill", "logfill"),
     ("E1 fields", "fields_"),  # fields_kernel, fields_summary_kernel
+    ("boundary scan", "chunk_starts"),
     ("copies", "memcpy"),
     ("fills", "memset"),
     ("scans (cumsum, cummax)", "scan"),

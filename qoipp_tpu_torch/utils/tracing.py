@@ -30,7 +30,9 @@ host reassembly), ``decode.*`` and ``encode.*`` (the device steps).
 Spans mark steps, never items: a loop over requests or rows gets one span
 around it.  Counters: ``h2d_bytes``, ``h2d_pageable_bytes``,
 ``d2h_bytes``, ``host_syncs``, ``split_rounds``, ``packed_recodes``,
-``template_rows``, ``fields_rows``.
+``template_rows``, ``fields_rows``, ``boundary_scans`` and
+``boundary_scan_bytes`` (the chunk-start scan's launches and the region
+bytes they read).
 """
 
 from __future__ import annotations

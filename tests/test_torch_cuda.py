@@ -29,9 +29,13 @@ fuzzer's eight targets at three rounds each, the ingest example at B=2,
 and every tool refusing the card where torch reports none.  Chunked
 staging (utils/transport.stage_h2d at 256-byte chunks) through every
 engine that stages, the overlapped serving dispatch's side stream among
-them, against its unchunked run and the oracle; the two-level boundary
-scan against the shipped one; and each stage profile and host-stage
-experiment of qoipp_tpu_torch/benchmarks at a small size, timed.
+them, against its unchunked run and the oracle; the chunk-start scan's
+kernel against its plain version on byte soup up to batch1080_decode's
+128 x 278,528, stream window planes' strided views, a planned window,
+one-tag rows and corpus regions, one launch a call and its counters in a
+traced decode; the two-level boundary scan against the kernel; and each
+stage profile and host-stage experiment of qoipp_tpu_torch/benchmarks at a
+small size, timed.
 Without a CUDA device every test here skips.
 
 Run on a GPU machine (tests/conftest.py imports JAX, which it lacks):
@@ -951,6 +955,144 @@ def test_two_level_boundary_scan_on_card(cuda, b, qb):
         np.random.default_rng(qb), min(b, 2), qb)).to(cuda).repeat(b, 1)[:b]
     assert torch.equal(expt_boundary2l.chunk_starts_batch_2l(reg),
                        boundary.chunk_starts_batch(reg))
+
+
+# (B, Qb) of the chunk-start scan on the two-level experiment's byte soup:
+# one block to batch1080_decode's 128 x 2,176 blocks
+SCAN_SOUP_SHAPES = [(1, 128), (3, 512), (2, 37 * 128), (8, 2048 * 128),
+                    (128, 2176 * 128)]
+
+
+def _soup(b, qb, cuda):
+    """b rows of the experiment's byte soup on the card (up to 4 drawn,
+    repeated)."""
+    from qoipp_tpu_torch.benchmarks import expt_boundary2l
+
+    rows = torch.from_numpy(expt_boundary2l._rand_streams(
+        np.random.default_rng(qb), min(b, 4), qb)).to(cuda)
+    return rows.repeat(-(-b // rows.shape[0]), 1)[:b]
+
+
+def _scan_once(regions):
+    """The chunk-start scan's kernel on regions, one launch, bit-exact to
+    its plain version."""
+    from qoipp_tpu_torch.ops import boundary
+
+    before = kernels.launch_counts()["chunk_starts"]
+    got = boundary.chunk_starts_batch(regions)
+    assert kernels.launch_counts()["chunk_starts"] == before + 1
+    assert got.dtype == torch.bool and got.shape == regions.shape
+    assert torch.equal(got, boundary.chunk_starts_batch_plain(regions))
+
+
+@pytest.mark.parametrize("b,qb", SCAN_SOUP_SHAPES)
+def test_chunk_starts_kernel_on_byte_soup(cuda, b, qb):
+    _scan_once(_soup(b, qb, cuda))
+
+
+@pytest.mark.parametrize("qseg", [12288, 14336, 16384])
+def test_chunk_starts_kernel_on_window_plane_view(cuda, qseg):
+    """The stream window's (96, qseg + 8) plane read through its [:, :qseg]
+    view, no copy: rows alternately 16- and 8-byte aligned."""
+    plane = torch.zeros((96, qseg + 8), dtype=torch.uint8, device=cuda)
+    plane[:, :qseg] = _soup(96, qseg, cuda)
+    view = plane[:, :qseg]
+    assert view.stride() == (qseg + 8, 1)
+    _scan_once(view)
+
+
+def test_chunk_starts_kernel_on_a_planned_window(cuda):
+    """The streaming decoder's own plan of a 1 MiB window of the committed
+    1080p photo (stream8k_decode's tile: 96 lanes, qseg as plan_window
+    buckets it), read as _decode_window_lanes reads it."""
+    from qoipp_tpu_torch.ops import device_stream
+
+    blob = np.fromfile(CORPUS_DIR / "photo_china_1080p.qoi", np.uint8)
+    assert blob.size > 14 + (1 << 20)
+    dec = device_stream.DeviceStreamDecoder(device=cuda)
+    dec.initialize(blob[:14]).value()
+    plane, _, _, qseg, *_ = dec.plan_window(blob[14: 14 + (1 << 20)].tobytes())
+    assert plane.shape == (96, qseg + 8)
+    _scan_once(torch.from_numpy(plane).to(cuda)[:, :qseg])
+
+
+@pytest.mark.parametrize("tag", [0x00, 0x80, 0xFE, 0xFF])
+def test_chunk_starts_kernel_on_one_tag_rows(cuda, tag):
+    """Rows of one tag: every byte a start (1-byte ops), and LUMA, RGB and
+    RGBA chains across 40 tiles, each tile's entry phase from its look-back."""
+    _scan_once(torch.full((3, 40 * 4096 + 128), tag, dtype=torch.uint8,
+                          device=cuda))
+
+
+def test_chunk_starts_kernel_on_corpus_regions(cuda):
+    """Real make_corpus streams' regions, RGB and RGBA, as the batch
+    pipeline cuts them."""
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+
+    for ch, seed in ((3, 1), (4, 2)):
+        desc, _, blobs = make_corpus(4, 320, 200, seed=seed, channels=ch)
+        pipe = BatchPipeline(desc, max_stream_len=max(x.size for x in blobs),
+                             device=cuda)
+        streams, sizes = (torch.from_numpy(x).to(cuda)
+                          for x in pipe.pack_streams(blobs))
+        q = torch.arange(pipe.qb, device=cuda)[None, :]
+        _scan_once(torch.where(q < (sizes - 14)[:, None],
+                               streams[:, 14: 14 + pipe.qb], 0).contiguous())
+
+
+def test_chunk_starts_device_ops_do_not_grow_with_shape(cuda):
+    """A call is the kernel and its status words' fill, one row or 128 rows
+    of batch1080_decode's width."""
+    from qoipp_tpu_torch.ops import boundary
+    from qoipp_tpu_torch.utils import profile
+
+    for b, qb in ((1, 128), (128, 2176 * 128)):
+        reg = torch.zeros((b, qb), dtype=torch.uint8, device=cuda)
+        groups = profile.profile_path(
+            lambda: boundary.chunk_starts_batch(reg), calls=5,
+            warmup=1)["groups"]
+        assert groups["boundary scan"][1] > 0
+        assert sum(n for _, n in groups.values()) <= 3
+
+
+def test_boundary_scan_counters_on_card(cuda):
+    """boundary_scans and boundary_scan_bytes count the kernel's launches
+    and the region bytes they read: one over B x qb in a traced batch
+    decode, one a window over its (L, qseg) in a stream session."""
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+    from qoipp_tpu_torch.ops import device_stream
+    from qoipp_tpu_torch.utils import tracing
+
+    def counted(fn):
+        before = kernels.launch_counts()["chunk_starts"]
+        with tracing.collect() as tr:
+            fn()
+        c = {}
+        for (_, k), v in tr.counters.items():
+            c[k] = c.get(k, 0) + v
+        return kernels.launch_counts()["chunk_starts"] - before, c
+
+    desc, _, blobs = make_corpus(4, 320, 200, seed=5)
+    pipe = BatchPipeline(desc, max_stream_len=max(x.size for x in blobs),
+                         device=cuda)
+    streams, sizes = (torch.from_numpy(x).to(cuda)
+                      for x in pipe.pack_streams(blobs))
+    launched, c = counted(lambda: pipe.decode_packed(streams, sizes))
+    assert launched == c["boundary_scans"] == 1
+    assert c["boundary_scan_bytes"] == len(blobs) * pipe.qb
+
+    side = 512
+    blob, _ = oracle.encode(make_image(side, side, seed=3),
+                            Desc(side, side, Channels.RGB))
+    out = {}
+    launched, c = counted(lambda: out.update(zip(
+        ("px", "dec"), device_stream.stream_decode(blob, 1 << 16,
+                                                   device=cuda))))
+    windows = out["dec"].windows
+    assert len(windows) > 1
+    assert launched == c["boundary_scans"] == len(windows)
+    assert c["boundary_scan_bytes"] == sum(
+        -(-w["lanes"] // 8) * 8 * w["qb"] for w in windows)
 
 
 @pytest.fixture
