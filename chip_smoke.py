@@ -937,17 +937,20 @@ def phase5_kernels_at_main_shapes(run, launches, card):
                             n_cap=k2["n_cap"]))
 
     packed = run["packed_in"][:8]  # the sub-batch encode_packed_chunked runs
-    tlo, thn, keep, trailing = enc_ops.chunk_fields(packed, pipe.n_px,
-                                                    pipe.channels)
-    k3, (tlo, thn), counts = _compact_time((tlo, thn), keep, pipe.chunk_cap,
-                                           card)
+    # K3's and K4's arguments as the batch encoder gives them
+    with _recorded(*_ENCODE_CALLS) as calls:
+        pipe.encode_packed_checked(packed)
+    given = {name: (args, kwargs) for name, args, kwargs, _ in calls}
+    del calls
+    (planes, keep), kw = given["compact_rows"]
+    k3, _, _ = _compact_time(planes, keep, kw["cap"], card)
     rows.append(_kernel_row(
         "compact", launches["compact"], k3.pop("err"), k3.pop("ms"),
         k3.pop("plain_ms"), k3.pop("bytes"), k3.pop("ops"), **k3))
 
-    off, tlo, thn, _ = enc_ops.chunk_offsets(tlo, thn, counts, keep,
-                                             trailing, pipe.n_px)
-    args = (off, tlo, thn, pipe.out_cap)
+    args, _ = given["emit_bytes"]
+    off = args[0]
+    del given, planes, keep
     err = selfcheck.max_abs_err(emit_kernel.emit_bytes(*args),
                                 emit_kernel.emit_bytes_reference(*args))
     expect(err == 0, "emit disagrees with its plain version")
@@ -965,7 +968,7 @@ def phase5_kernels_at_main_shapes(run, launches, card):
 
 def _tight_caps_time(run, card):
     """The batch encoder on the batch RGB corpus at the default caps and at
-    selfcheck.tight_caps, where chunk_cap < n_px and chunk_offsets finds
+    selfcheck.tight_caps, where chunk_cap < n_px and encode_rows finds
     each row's chunk_cap-th chunk (nth_chunk) for the rows K3 cut short:
     held against the compact-first chain, both calls and that scan alone
     timed (events); logged only."""
@@ -980,7 +983,7 @@ def _tight_caps_time(run, card):
     default_ms, tight_ms = (timed_ms(lambda c=c: enc_ops.encode_batch_checked(
         packed, n_px, header, ch, chunk_cap=c[0], out_cap=c[1]))
         for c in ((None, None), (cap, out_cap)))
-    _, keep, _ = enc_ops.chunk_positions(packed, n_px)
+    _, keep, _ = selfcheck.chunk_positions(packed, n_px)
     cut = int((keep.sum(dim=1) > cap).sum())
     scan_ms = timed_ms(lambda: enc_ops.nth_chunk(keep, cap))
     log(f"phase 5: batch encode ({packed.shape[0]} x {packed.shape[1]} px) "
@@ -1741,32 +1744,14 @@ def _lane_encode_inputs(held, staged, what):
 
 def _hold_batch_encode(held, packed, n_px, channels, chunk_cap, out_cap,
                        what):
-    """E1, K3 and K4 on the batch encoder's input (ops/encode.
-    _encode_kernel_impl) as they run on it."""
-    chunk_cap, out_cap = enc_ops.encode_caps(packed.shape[1], channels,
-                                             chunk_cap, out_cap)
-    b, n = packed.shape
-    fargs = (packed.contiguous(), torch.full((b,), n_px, dtype=torch.int32,
-                                             device=packed.device), channels)
-    _hold_call(held, "fields",
-               lambda: fields_kernel.encode_fields_planes(*fargs),
-               lambda: fields_kernel.encode_fields_planes_reference(
-                   *fargs, *fields_kernel.start_state(b, packed.device)),
-               f"{what} ({b} x {n} px)")
-    tlo, thn, keep, trailing = enc_ops.chunk_fields(packed, n_px, channels)
-    args = ((tlo, thn), keep, chunk_cap)
-    (tlo, thn), counts = _hold_call(
-        held, "compact", lambda: compact_kernel.compact_rows(*args),
-        lambda: compact_kernel.compact_rows_reference(*args),
-        f"{what}, 2 planes ({b} x {n} -> {chunk_cap})",
-        _compact_same(chunk_cap))
-    off, tlo, thn, _ = enc_ops.chunk_offsets(tlo, thn, counts, keep,
-                                             trailing, n_px)
-    _hold_call(held, "emit",
-               lambda: emit_kernel.emit_bytes(off, tlo, thn, out_cap),
-               lambda: emit_kernel.emit_bytes_reference(off, tlo, thn,
-                                                        out_cap),
-               f"{what} ({b} x {off.shape[1]} rows -> {out_cap} bytes)")
+    """E1, K3 and K4 on the batch encoder's input (ops/encode.encode_rows)
+    as they run on it, recorded in one encode_batch_checked call."""
+    header = torch.arange(1, 15, dtype=torch.uint8, device=packed.device)
+    with _recorded(*_ENCODE_CALLS) as calls:
+        enc_ops.encode_batch_checked(packed, n_px, header, channels,
+                                     chunk_cap=chunk_cap, out_cap=out_cap)
+    _hold_recorded(held, calls, f"{what} ({packed.shape[0]} x "
+                   f"{packed.shape[1]} px)")
 
 
 def _hold_api(held, blob, raw, d, dev, what):
@@ -2054,7 +2039,7 @@ def _recorded(*targets):
 
 def _fields_plain(packed, n_px, channels, *carries):
     """E1's plain version, its carries the wrapper's default where the
-    caller gives none (the batch encoder's chunk_fields)."""
+    caller gives none (the batch encoder's encode_rows)."""
     return fields_kernel.encode_fields_planes_reference(
         packed, n_px, channels,
         *(carries or fields_kernel.start_state(packed.shape[0],
@@ -2074,17 +2059,16 @@ _RECORDED = {
     "emit_bytes": ("emit", emit_kernel.emit_bytes_reference),
     "chunk_starts_batch": ("chunk_starts",
                            boundary.chunk_starts_batch_plain)}
-# where dp decode and encode (BatchPipeline; the batch encoder's
-# chunk_fields imports E1 from its module when called; the boundary pass
-# finds the chunk-start scan in its own module) and sp encode
-# (ops/device_stream._encode_rows) look them up
+# where every encoder but the lanes' (ops/encode.encode_rows: the batch
+# encoder, the stream windows, sp encode; it imports E1 from its module
+# when called) looks up E1, K3 and K4; where dp decode (BatchPipeline; the
+# boundary pass finds the chunk-start scan in its own module) looks up
+# the decode kernels
+_ENCODE_CALLS = ((fields_kernel, ("encode_fields_planes",)),
+                 (enc_ops, ("compact_rows", "emit_bytes")))
 _DP_CALLS = ((boundary, ("chunk_starts_batch",)),
              (replay_kernel, ("replay_batch_carry",)),
-             (place_kernel, ("place_fill",)),
-             (fields_kernel, ("encode_fields_planes",)),
-             (enc_ops, ("compact_rows", "emit_bytes")))
-_SP_ENCODE_CALLS = ((device_stream, ("encode_fields_planes", "compact_rows",
-                                     "emit_bytes")),)
+             (place_kernel, ("place_fill",))) + _ENCODE_CALLS
 # where the tools and examples reach them: the one-shot codec
 # (ops/decode, ops/encode), BatchPipeline, SplitDecoder and the split
 # windows (models/split), the device stream codecs and ServingCodec; the
@@ -2093,9 +2077,7 @@ _TOOLS_CALLS = ((boundary, ("chunk_starts_batch",)),
                 (replay_kernel, ("replay_batch_carry", "replay_batch_summary",
                                  "logfill_batch")),
                 (place_kernel, ("place_fill",)),
-                (compact_kernel, ("compact_rows",)),
-                (fields_kernel, ("encode_fields_planes",)),
-                (enc_ops, ("compact_rows", "emit_bytes"))) + _SP_ENCODE_CALLS
+                (compact_kernel, ("compact_rows",))) + _ENCODE_CALLS
 
 
 def _shapes(args, kwargs=None):
@@ -2350,7 +2332,7 @@ def parallel_sp_rank(cfg):
         shard, n_local, n_last = sharded.sp_shard(pixels_to_packed(
             torch.from_numpy(raw).to(dev), ch), m)
         fn = sharded.make_sp_encode(m, n_local, ch, device=dev)
-        with _recorded(*_SP_ENCODE_CALLS) as calls:
+        with _recorded(*_ENCODE_CALLS) as calls:
             (body, length), launches = _counted(
                 dev, lambda: fn(shard, n_last))
         expect(sharded.gather_stream(m, body, length) == blob[14:].tobytes(),
@@ -2360,7 +2342,8 @@ def parallel_sp_rank(cfg):
         _hold_recorded(held, calls, f"sp encode {name} {desc.width}x"
                        f"{desc.height}x{ch}, shard {rank} of {world} ({v} "
                        f"of {n_local} px)")
-        kernel_calls = [(getattr(device_stream, c), args, kwargs)
+        owner = {n: mod for mod, names in _ENCODE_CALLS for n in names}
+        kernel_calls = [(getattr(owner[c], c), args, kwargs)
                         for c, args, kwargs, _ in calls]
         del calls
         ms, first_ms = _rank_ms(lambda: fn(shard, n_last), dev)

@@ -8,12 +8,13 @@ uploaded by its stage_plan.  Stages of ops/encode._encode_lanes_impl,
 each alone on the materialized outputs of the one before
 (stages.time_stages): dense (lane_positions), compact (K3), table
 (lane_table, the segmented same-hash scan), templates (lane_templates),
-ends (the one-plane K3 of each stream's end) and emit (K4 and the zeroed
-tail), beside the fused _encode_lanes_impl.  The JAX script timed
-cumulative jitted prefixes (dense, compact, table, full); here the stages
-past table are the port's own cut of its full call (the table's result
-handed to lane_templates, which the shipped call leaves to scan inline),
-so that they compose to its output.  The emit stage's outputs must equal _encode_lanes_impl's,
+ends (the one-plane K3 of each stream's end) and emit (the emit stage's
+K4 and zeroed tail, and the ok flags), beside the fused
+_encode_lanes_impl.  The JAX script timed cumulative jitted prefixes
+(dense, compact, table, full); here the stages past table are the port's
+own cut of its full call (the table's result handed to lane_templates,
+which the shipped call leaves to scan inline), so that they compose to
+its output.  The emit stage's outputs must equal _encode_lanes_impl's,
 and the streams PackedEncoder.finish makes of them the oracle's.
 
     python -m qoipp_tpu_torch.benchmarks.profile_packed_encode [--replicate 4]
@@ -75,18 +76,15 @@ def main(argv=None, device=None) -> dict:
     table = enc_ops.lane_table(pk_c, pf_c, counts, bits)
     off, tlo, thn, incl, t1, total_len = enc_ops.lane_templates(
         pk_c, pf_c, counts, bits, table)
-    cols = torch.arange(max(ends_cap, out_cap), dtype=torch.int32,
-                        device=dev)[None, :]
+    cols = torch.arange(ends_cap, dtype=torch.int32, device=dev)[None, :]
 
     def ends_of():
         (ends,), nseg = enc_ops.compact_rows((incl,), t1, cap=ends_cap)
-        return torch.where(cols[:, :ends_cap] < nseg[:, None], ends, 0), nseg
+        return torch.where(cols < nseg[:, None], ends, 0), nseg
 
     def emit():
-        out = enc_ops.emit_bytes(off, tlo, thn, out_cap)
-        ok = (counts + enc_ops.CBLK + 128 <= chunk_cap) & (
-            total_len <= out_cap)
-        return torch.where(cols[:, :out_cap] < total_len[:, None], out, 0), ok
+        return (enc_ops.emit_stream(off, tlo, thn, total_len, out_cap),
+                enc_ops.caps_ok(counts, chunk_cap, total_len, out_cap))
 
     ends, nseg = ends_of()
     out, ok = emit()

@@ -11,10 +11,12 @@ device ms and launches by torch.profiler), beside the fused call:
     stream), boundary (ops/boundary.analyze_region_batch), fields
     (ops/decode.fields_dense_batch), replay (K1), base, place (K2), and
     decode_packed;
-  encode: dense (chunk_positions), compact (K3), table (chunk_table, the
-    same-hash scan), offsets (chunk_templates: op selection, templates,
-    byte offsets), emit (K4, the header and the zeroed tail), and the
-    whole encode_packed_checked.
+  encode, the compact-first stages of the JAX script (the batch
+    encoder's reference in kernels/selfcheck; the encoder itself runs
+    fields-first): dense (chunk_positions), compact (K3), table
+    (chunk_table, the same-hash scan), offsets (chunk_templates: op
+    selection, templates, byte offsets), emit (the emit stage's K4 and
+    zeroed tail, and the header), and the whole encode_packed_checked.
 
 Regions, boundary, fields, replay and place are the JAX script's stages
 as they stand; base is the JAX K2's window_base_rows input
@@ -22,7 +24,7 @@ as they stand; base is the JAX K2's window_base_rows input
 finds each window's rows itself): it is timed, but not part of the stage
 sum.  The encode's table and offsets are the port's cut of the JAX
 script's table stage and its synthetic-offsets emit stage: the shipped
-encoder scans inside chunk_templates; here the scan runs alone and its
+chain scans inside chunk_templates; here the scan runs alone and its
 result goes to chunk_templates (table_val), so the stages compose to the
 fused output, the table stage repeating the templates' masks and hash.
 The place stage's output must equal decode_packed's and the oracle's
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from . import stages as S
+from ..kernels import selfcheck
 from ..models.pipeline import BatchPipeline
 from ..ops import encode as enc_ops
 from ..ops import place_window
@@ -95,19 +98,17 @@ def encode_profile(pipe, packed, blobs, runs: int) -> dict:
     rows and the chunk statistics."""
     n_px, ch = pipe.n_px, pipe.channels
     chunk_cap, out_cap = pipe.chunk_cap, pipe.out_cap
-    posflag, keep, fb = enc_ops.chunk_positions(packed, n_px)
+    posflag, keep, fb = selfcheck.chunk_positions(packed, n_px)
     (pk_c, pf_c), counts = enc_ops.compact_rows((packed, posflag), keep,
                                                 cap=chunk_cap)
-    table = enc_ops.chunk_table(pk_c, pf_c, counts, fb)
-    off, tlo, thn, total_len = enc_ops.chunk_templates(
+    table = selfcheck.chunk_table(pk_c, pf_c, counts, fb)
+    off, tlo, thn, total_len = selfcheck.chunk_templates(
         pk_c, pf_c, counts, n_px, fb, ch, table)
-    col = torch.arange(out_cap, dtype=torch.int32,
-                       device=packed.device)[None, :]
 
     def emit():
-        out = enc_ops.emit_bytes(off, tlo, thn, out_cap)
+        out = enc_ops.emit_stream(off, tlo, thn, total_len, out_cap)
         out[:, :14] = pipe._header
-        return torch.where(col < total_len[:, None], out, 0)
+        return out
 
     got = emit()
     want, lengths, ok = pipe.encode_packed_checked(packed)
@@ -119,11 +120,11 @@ def encode_profile(pipe, packed, blobs, runs: int) -> dict:
                  for h, n, b in zip(host, lens, blobs)),
              "encode_packed_checked differs from the oracle's streams")
     stages = dict(
-        dense=lambda: enc_ops.chunk_positions(packed, n_px),
+        dense=lambda: selfcheck.chunk_positions(packed, n_px),
         compact=lambda: enc_ops.compact_rows((packed, posflag), keep,
                                              cap=chunk_cap),
-        table=lambda: enc_ops.chunk_table(pk_c, pf_c, counts, fb),
-        offsets=lambda: enc_ops.chunk_templates(
+        table=lambda: selfcheck.chunk_table(pk_c, pf_c, counts, fb),
+        offsets=lambda: selfcheck.chunk_templates(
             pk_c, pf_c, counts, n_px, fb, ch, table),
         emit=emit)
     eb = packed.shape[0]

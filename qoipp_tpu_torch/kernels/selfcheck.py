@@ -109,8 +109,9 @@ bit-exact.  The cases:
 
 ``batch_encode_err`` holds the batch encoder (fields-first: E1, K3, K4)
 against ``encode_compact_first``, the compact-first chain in plain
-versions, on the inputs a caller gives it, at the default caps or at
-``tight_caps``.
+versions (its stages ``chunk_positions``, ``chunk_table`` and
+``chunk_templates`` are here too: no encoder runs them), on the inputs
+a caller gives it, at the default caps or at ``tight_caps``.
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ import torch
 from ..ops import (boundary, compact_kernel, emit_kernel, emit_window,
                    encode, fields_kernel, place_kernel, place_window, probes,
                    replay_kernel)
-from ..ops.bitops import hash6
+from ..ops.bitops import START_PIXEL_PACKED, hash6
 
 REPLAY_TILE = 1024  # rows a tile of csrc/replay.cu (kTile)
 # (B, Nb) of fields_segments: one tile to 2^18 pixels at B 1, 3 and 16
@@ -540,22 +541,108 @@ def fields_segments(device, b: int, nb: int) -> int:
     return max(_fields_err(args, channels) for channels in (3, 4))
 
 
+# ---------------------------------------------------------------------------
+# The batch encoder's compact-first reference: the JAX package's
+# _encode_kernel_impl, stage by stage, in plain torch.  A dense pass marks
+# the chunk rows (differing pixels and RUN-62 flush points), K3 compacts
+# the pixels, and the templates are made on the compacted rows.
+# ---------------------------------------------------------------------------
+
+
+def chunk_positions(packed, n_px: int):
+    """Compact-first stage 1.  packed (B, Nb) int32 -> (posflag, keep,
+    fb): keep marks chunk rows (differing pixels and RUN-62 flush points);
+    posflag holds the position with bit fb set on differing pixels."""
+    b, nb = packed.shape
+    idx = torch.arange(nb, dtype=torch.int32,
+                       device=packed.device).expand(b, nb)
+    valid = idx < n_px
+    prev = torch.cat(
+        [torch.full((b, 1), START_PIXEL_PACKED, dtype=torch.int32,
+                    device=packed.device), packed[:, :-1]], dim=1)
+    eq_raw = packed == prev
+    noneq = valid & ~eq_raw
+    last_noneq = torch.cummax(torch.where(noneq, idx, -1), dim=1).values
+    cnt = idx - last_noneq
+    hit62 = eq_raw & valid & (cnt % 62 == 0)  # run-limit flush (RUN 62)
+    keep = noneq | hit62
+    fb = 21 if nb <= 1 << 21 else 30
+    posflag = idx | (noneq.to(torch.int32) << fb)
+    return posflag, keep, fb
+
+
+def chunk_table(pk_c, pf_c, counts, fb: int):
+    """chunk_templates' table scan: each compacted chunk row's same-hash
+    predecessor word (_last_same_hash_value over the differing rows)."""
+    rows = torch.arange(pk_c.shape[1], dtype=torch.int32,
+                        device=pk_c.device)[None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
+    return encode._last_same_hash_value(pk_c, hash6(pk_c), nq_c)
+
+
+def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
+                    table_val=None):
+    """Compact-first stage 3.  Compacted chunk rows (pixel, position|flag),
+    (B, chunk_cap) int32, and their counts -> (off, tlo, thn, total_len):
+    per-row byte offsets and 6-byte templates (thn bits 16+ hold the byte
+    count), with the trailing run, end marker and sentinel rows of
+    encode.stream_offsets, and each stream's length.  The same-hash scan
+    runs here unless table_val, chunk_table's result, is given (a stage
+    profile times the scan on its own)."""
+    b, chunk_cap = pk_c.shape
+    dev = pk_c.device
+    rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
+    valid_c = rows < counts[:, None]
+    pk_c = torch.where(valid_c, pk_c, 0)
+    pf_c = torch.where(valid_c, pf_c, 0)
+    pos = pf_c & ((1 << fb) - 1)
+    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
+
+    # a chunk's prev pixel is the previous chunk row's pixel (run interiors
+    # repeat it); the pending run length is the position gap
+    prev_c = torch.cat([torch.full((b, 1), START_PIXEL_PACKED,
+                                   dtype=torch.int32, device=dev),
+                        pk_c[:, :-1]], dim=1)
+    pos_prev = torch.cat([torch.full((b, 1), -1, dtype=torch.int32,
+                                     device=dev), pos[:, :-1]], dim=1)
+    gap = torch.where(valid_c, pos - pos_prev - 1, 0)
+
+    h = hash6(pk_c)
+    if table_val is None:
+        table_val = encode._last_same_hash_value(pk_c, h, nq_c)
+    own_len, own = encode.op_bytes(pk_c, prev_c, nq_c, table_val, h,
+                                   channels)
+
+    # a differing chunk flushes its pending run first (gap in [1, 61]); a
+    # flush row IS the run (RUN 62: 61 equal pixels strictly before it)
+    run_byte = torch.where(nq_c, encode.TAG_RUN | ((gap - 1) & 0x3F),
+                           encode.TAG_RUN | 61)
+    has_run = torch.where(nq_c, gap > 0, valid_c)
+    tlo, thn = encode.pack_templates(own_len, own, has_run, run_byte)
+
+    last_pos = torch.where(valid_c, pos, -1).amax(dim=1)
+    off, _, total_len = encode.stream_offsets(
+        tlo, thn, counts, 14, (n_px - 1 - last_pos).clamp(min=0))
+    return off, tlo, thn, total_len
+
+
 def encode_compact_first(packed, n_px: int, header, channels: int,
                          chunk_cap: int | None = None,
                          out_cap: int | None = None):
     """The batch encoder's reference on the card, where the JAX package
-    cannot run: the port's compact-first stages, in the order of the JAX
-    package's _encode_kernel_impl, in plain versions (chunk_positions,
-    K3's plain version on the pixels, chunk_templates, K4's plain
-    version) -> (out, total_len, ok) as encode_batch_checked returns
-    them."""
+    cannot run: the compact-first stages in plain versions
+    (chunk_positions, K3's plain version on the pixels, chunk_templates,
+    K4's plain version) -> (out, total_len, ok) as encode_batch_checked
+    returns them."""
     chunk_cap, out_cap = encode.encode_caps(packed.shape[1], channels,
                                             chunk_cap, out_cap)
-    posflag, keep, fb = encode.chunk_positions(packed, n_px)
+    posflag, keep, fb = chunk_positions(packed, n_px)
     (pk_c, pf_c), counts = compact_kernel.compact_rows_reference(
         (packed, posflag), keep, chunk_cap)
-    off, tlo, thn, total_len = encode.chunk_templates(pk_c, pf_c, counts,
-                                                      n_px, fb, channels)
+    off, tlo, thn, total_len = chunk_templates(pk_c, pf_c, counts, n_px, fb,
+                                               channels)
     out = emit_kernel.emit_bytes_reference(off, tlo, thn, out_cap)
     out[:, :14] = header
     col = torch.arange(out_cap, device=out.device)[None, :]
@@ -571,7 +658,7 @@ def tight_caps(packed, n_px: int):
     count, so rows up to the median pass and rows of more chunks than
     chunk_cap keep their first chunk_cap (K3 drops the rest); out_cap Nb
     + 777 bytes, under the streams of dense images."""
-    _, keep, _ = encode.chunk_positions(packed, n_px)
+    _, keep, _ = chunk_positions(packed, n_px)
     return (int(keep.sum(dim=1).median()) + compact_kernel.BLK + 128,
             packed.shape[1] + 777)
 

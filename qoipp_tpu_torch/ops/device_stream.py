@@ -12,13 +12,13 @@ chunk on the host.
   one chain whose head re-enters the carried state
   (``models/split._decode_window_lanes``: K5, K3 where the chunk domain
   pays, K2).
-- Encode: E1 (``ops/fields_kernel``) gives every pixel's template from
-  the carried state, K3 compacts the pixels that emit bytes, K4 writes
-  them.  A window may be cut into ``split_lanes`` sub-windows whose
-  entering states are closed-form functions of the pixels (no fixpoint):
-  prev is the previous lane's last pixel, the run counter a mod-62
-  recurrence, the table an exclusive overwrite-combine of per-lane
-  last-writer summaries.
+- Encode: ``ops/encode.encode_rows`` from the carried state: E1 gives
+  every pixel's template, K3 compacts the pixels that emit bytes, the
+  emit stage writes them.  A window may be cut into ``split_lanes``
+  sub-windows whose entering states are closed-form functions of the
+  pixels (no fixpoint): prev is the previous lane's last pixel, the run
+  counter a mod-62 recurrence, the table an exclusive overwrite-combine
+  of per-lane last-writer summaries.
 
 Each window's output comes to the host in one bulk fetch.
 
@@ -33,8 +33,9 @@ fixpoint rounds) and ``stream_lanes`` (its segments).  The encoder's
 pageable upload of each window (``host.upload``: ``h2d_bytes``,
 ``h2d_pageable_bytes``), ``stream.carry`` around ``lane_carries``, E1 as
 ``encode.fields`` (``fields_rows``: L x n pixel slots), K3 as
-``encode.compact``, the offsets, K4 and the mask as ``encode.emit``, and
-its fetch as the decoder's, with ``stream_windows`` one a window.
+``encode.compact``, the sentinel and offsets as ``encode.templates``
+(``template_rows``), K4 and the mask as ``encode.emit``, and its fetch
+as the decoder's, with ``stream_windows`` one a window.
 """
 
 from __future__ import annotations
@@ -57,19 +58,15 @@ from ..common import (
     write_header,
 )
 from ..convert import resolve_device
-from ..models.packed import _round_up
 from ..models.split import _compact_cap, _decode_window_lanes
 from ..utils import tracing
 from ..utils.transport import stage_h2d
 from . import boundary, place_kernel
 from . import replay_kernel as rk
 from .bitops import hash6, packed_to_pixels, pixels_to_packed
-from .compact_kernel import compact_rows
 from .decode import _bucket
-from .emit_kernel import WIN as EMIT_WIN
-from .emit_kernel import emit_bytes
-from .encode import TILE, pad_to_tile, row_offsets
-from .fields_kernel import BLK, encode_fields_planes, start_state
+from .encode import TILE, _round_up, encode_rows, pad_to_tile
+from .fields_kernel import BLK, start_state
 
 
 def _joined(parts) -> np.ndarray:
@@ -227,40 +224,6 @@ class DeviceStreamDecoder:
 # --------------------------------------------------------------------------
 
 
-def _encode_rows(packed, v, prev_in, run_in, seen_in, channels: int):
-    """E1 -> K3 -> K4 over L rows of pixel words, each with its own carried
-    state.  packed: (L, n) int32; v: (L,) int32 valid pixels per row;
-    prev_in, run_in (L,) and seen_in (64, L) int32.
-
-    Returns (out (L, out_cap) uint8 chunk bytes, zero past each row's
-    length; lens (L,) int32; run_out (L, ceil(n / 2048)) and seen_out
-    (64, L), E1's)."""
-    n = packed.shape[1]
-    dev = packed.device
-    with tracing.span("encode.fields"):
-        tracing.count("fields_rows", packed.shape[0] * n)
-        tlo, thn, run_out, seen_out = encode_fields_planes(
-            packed, v, channels, prev_in, run_in, seen_in)
-    # the pixels that emit bytes: differing pixels and RUN-62 flushes
-    cap = _round_up(n + 1, 128)
-    (tlo_c, thn_c), counts = compact_rows((tlo, thn), (thn >> 16) != 0, cap)
-    with tracing.span("encode.emit"):
-        rows = torch.arange(cap, device=dev)[None, :]
-        live = rows < counts[:, None]
-        # a 1-byte sentinel row at counts keeps the last real row a covered
-        # row in K4 (excluded from the length); rows past it emit nothing
-        tlo_c = torch.where(live, tlo_c, 0)
-        thn_c = torch.where(live, thn_c,
-                            (rows == counts[:, None]).to(torch.int32) << 16)
-        off, end = row_offsets(thn_c >> 16, 0)
-        lens = end - 1
-        out_cap = _round_up((channels + 1) * n + 64, EMIT_WIN)
-        out = emit_bytes(off, tlo_c, thn_c, out_cap)
-        col = torch.arange(out_cap, device=dev)[None, :]
-        out = torch.where(col < lens[:, None], out, 0)
-    return out, lens, run_out, seen_out
-
-
 def _encode_window(raw_u8, n_px: int, prev_c, run_c, seen_c, channels: int,
                    nb: int):
     """Encode one pixel window from a carried state.
@@ -270,10 +233,9 @@ def _encode_window(raw_u8, n_px: int, prev_c, run_c, seen_c, channels: int,
     (64,) int32.  Returns (bytes (out_cap,) uint8, length () int32,
     prev_out, run_out, seen_out)."""
     packed = pixels_to_packed(raw_u8, channels).reshape(1, nb)
-    v = torch.full((1,), n_px, dtype=torch.int32, device=packed.device)
-    out, lens, run_out, seen_out = _encode_rows(
-        packed, v, prev_c.reshape(1), run_c.reshape(1), seen_c.reshape(64, 1),
-        channels)
+    out, lens, _, run_out, seen_out = encode_rows(
+        packed, n_px, channels,
+        carry=(prev_c.reshape(1), run_c.reshape(1), seen_c.reshape(64, 1)))
     last = n_px - 1
     return (out[0], lens[0], packed[0, last], run_out[0, last // BLK],
             seen_out[:, 0])
@@ -364,8 +326,8 @@ def _encode_window_lanes(raw_u8, n_px: int, prev_c, run_c, seen_c,
     with tracing.span("stream.carry"):
         v, prev_in, run_in, seen_in = lane_carries(packed, n_px, prev_c,
                                                    run_c, seen_c)
-    out, lens, run_out, seen_out = _encode_rows(packed, v, prev_in, run_in,
-                                                seen_in, channels)
+    out, lens, _, run_out, seen_out = encode_rows(
+        packed, v, channels, carry=(prev_in, run_in, seen_in))
     last = n_px - 1
     n = packed.shape[1]
     return (out, lens, packed_flat[last],

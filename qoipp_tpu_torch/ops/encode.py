@@ -3,19 +3,27 @@
 After the encoder processes a differing pixel p, table slot hash(p) holds
 p whatever op was emitted, and run pixels never touch the table; so the
 table, and with it every op decision, is a pure function of the pixel
-sequence.  The batch encoder (``_encode_kernel_impl``) runs fields-first:
+sequence.  Every device encoder ends in one emit stage: its compacted
+6-byte templates (thn bits 16+ the byte count) get their closing rows
+and a 1-byte sentinel row and their byte offsets (``stream_offsets``,
+under ``encode.templates``), then K4 writes them and the stream is
+zeroed past its length (``emit_stream``, under ``encode.emit``).
 
-1. ``chunk_fields``: E1 writes every pixel's 6-byte template (run streak,
+``encode_rows`` runs fields-first over rows of pixel words, each from the
+state carried into it (the batch encoder's whole images, the streaming
+windows, a sequence-parallel shard):
+
+1. E1 (``ops/fields_kernel``) writes every pixel's template (run streak,
    RUN-62 flush, same-hash lookup, op selection) and the trailing runs;
-   the pixels that emit bytes are the chunk rows;
-2. K3 compacts the templates to those rows;
-3. ``chunk_offsets``: the trailing run, end marker and sentinel rows
-   (``append_tail``) and the byte offsets;
-4. K4 writes the byte stream.
+   the pixels that emit bytes are the chunk rows (``encode.fields``);
+2. K3 compacts the templates to those rows (``encode.compact``);
+3. the emit stage.
 
-The compact-first stages of the JAX package's ``_encode_kernel_impl``
-(``chunk_positions``, K3 on the pixels, ``chunk_templates``) stay as the
-stage profiles' steps and the batch encoder's reference.
+The packed-lane encoder (``_encode_lanes_impl``) still runs
+compact-first: its dense pass (``lane_positions``), K3 on the pixels and
+the template passes on the chunk rows (``lane_templates``), then the
+emit stage.  The batch encoder's compact-first reference lives in
+``kernels/selfcheck``.
 """
 
 from __future__ import annotations
@@ -161,118 +169,49 @@ def pack_templates(own_len, own, has_run, run_byte):
     return tlo, thn
 
 
-@tracing.traced("encode.positions")
-def chunk_positions(packed, n_px: int):
-    """Compact-first stage 1.  packed (B, Nb) int32 -> (posflag, keep,
-    fb): keep marks chunk rows (differing pixels and RUN-62 flush
-    points); posflag holds the position with bit fb set on differing
-    pixels."""
-    b, nb = packed.shape
-    idx = torch.arange(nb, dtype=torch.int32, device=packed.device).expand(b, nb)
-    valid = idx < n_px
-    prev = torch.cat(
-        [torch.full((b, 1), START_PIXEL_PACKED, dtype=torch.int32,
-                    device=packed.device), packed[:, :-1]], dim=1)
-    eq_raw = packed == prev
-    noneq = valid & ~eq_raw
-    last_noneq = torch.cummax(torch.where(noneq, idx, -1), dim=1).values
-    cnt = idx - last_noneq
-    hit62 = eq_raw & valid & (cnt % 62 == 0)  # run-limit flush (RUN 62)
-    keep = noneq | hit62
-    fb = 21 if nb <= 1 << 21 else 30
-    posflag = idx | (noneq.to(torch.int32) << fb)
-    return posflag, keep, fb
-
-
-def chunk_table(pk_c, pf_c, counts, fb: int):
-    """chunk_templates' table scan: each compacted chunk row's same-hash
-    predecessor word (_last_same_hash_value over the differing rows)."""
-    rows = torch.arange(pk_c.shape[1], dtype=torch.int32,
-                        device=pk_c.device)[None, :]
-    valid_c = rows < counts[:, None]
-    pk_c = torch.where(valid_c, pk_c, 0)
-    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
-    return _last_same_hash_value(pk_c, hash6(pk_c), nq_c)
-
-
-@tracing.traced("encode.templates")
-def chunk_templates(pk_c, pf_c, counts, n_px: int, fb: int, channels: int,
-                    table_val=None):
-    """Compact-first stage 3.  Compacted chunk rows (pixel, position|flag),
-    (B, chunk_cap) int32, and their counts -> (off, tlo, thn, total_len):
-    per-row byte offsets and 6-byte templates (thn bits 16+ hold the byte
-    count), with the trailing run, end marker and a 1-byte sentinel
-    appended at counts, and each stream's length (sentinel excluded).
-    The same-hash scan runs here unless table_val, chunk_table's result,
-    is given (a stage profile times the scan on its own).  Counts B x
-    chunk_cap ``template_rows``."""
-    b, chunk_cap = pk_c.shape
-    tracing.count("template_rows", b * chunk_cap)
-    dev = pk_c.device
-    rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
-    valid_c = rows < counts[:, None]
-    pk_c = torch.where(valid_c, pk_c, 0)
-    pf_c = torch.where(valid_c, pf_c, 0)
-    pos = pf_c & ((1 << fb) - 1)
-    nq_c = valid_c & (((pf_c >> fb) & 1) == 1)
-
-    # a chunk's prev pixel is the previous chunk row's pixel (run interiors
-    # repeat it); the pending run length is the position gap
-    prev_c = torch.cat([torch.full((b, 1), START_PIXEL_PACKED,
-                                   dtype=torch.int32, device=dev),
-                        pk_c[:, :-1]], dim=1)
-    pos_prev = torch.cat([torch.full((b, 1), -1, dtype=torch.int32,
-                                     device=dev), pos[:, :-1]], dim=1)
-    gap = torch.where(valid_c, pos - pos_prev - 1, 0)
-
-    h = hash6(pk_c)
-    if table_val is None:
-        table_val = _last_same_hash_value(pk_c, h, nq_c)
-    own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, channels)
-
-    # a differing chunk flushes its pending run first (gap in [1, 61]); a
-    # flush row IS the run (RUN 62: 61 equal pixels strictly before it)
-    run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
-    has_run = torch.where(nq_c, gap > 0, valid_c)
-    tlo, thn = pack_templates(own_len, own, has_run, run_byte)
-
-    last_pos = torch.where(valid_c, pos, -1).amax(dim=1)
-    return append_tail(tlo, thn, counts, (n_px - 1 - last_pos).clamp(min=0))
-
-
-def append_tail(tlo, thn, counts, trailing):
-    """The tail of stage 3 in either order.  Chunk rows' templates (B,
-    chunk_cap) int32 (thn bits 16+ the byte count, rows at or past counts
-    arbitrary), their counts and each row's trailing run -> (off, tlo,
-    thn, total_len): the trailing run and end marker as two rows and a
-    1-byte sentinel row written into tlo and thn at counts (clamped into
-    the rows, as the JAX package's dynamic_update_slice clamps them),
-    each row's byte offset after the 14-byte header (rows past the
-    sentinel emit nothing), and each stream's length (sentinel
-    excluded)."""
-    b, chunk_cap = tlo.shape
-    dev = tlo.device
-    # with a trail: [run, 0 x7, 1]; without: [0 x7, 1, 0]; the sentinel
-    # keeps the marker's last row a covered row in K4
-    ht = (trailing > 0).to(torch.int32)
-    app_tlo = torch.stack([ht * (TAG_RUN | ((trailing - 1) & 0x3F)),
-                           256 << (8 * ht), torch.zeros_like(ht)], 1)
-    app_thn = torch.stack([torch.full_like(ht, 6 << 16), (2 + ht) << 16,
-                           torch.full_like(ht, 1 << 16)], 1)
-    at = counts.clamp(max=chunk_cap - 3)
-    cols = (at[:, None] + torch.arange(3, device=dev)[None, :]).to(torch.int64)
-    tlo.scatter_(1, cols, app_tlo)
-    thn.scatter_(1, cols, app_thn)
-    rows = torch.arange(chunk_cap, dtype=torch.int32, device=dev)[None, :]
-    off, end = row_offsets(torch.where(rows < (at + 3)[:, None], thn >> 16, 0),
-                           14)
-    return off, tlo, thn, end - 1
+def stream_offsets(tlo_c, thn_c, counts, start: int, trailing=None):
+    """The emit stage's first half, which every device encoder runs under
+    ``encode.templates`` after its template passes.  Compacted templates
+    (B, C) int32 (thn bits 16+ the byte count, rows at or past counts
+    arbitrary) and their counts (B,) -> (off, incl, total_len): written
+    into tlo_c and thn_c at counts, clamped into the rows as the JAX
+    package's dynamic_update_slice clamps them, whole images' two closing
+    rows (each stream's ``trailing`` run (B,) and the end marker) and a
+    1-byte sentinel row, which keeps the last real row a covered row in
+    K4; each row's exclusive and inclusive byte offsets from ``start``
+    (rows past the sentinel emit nothing); each stream's length, the
+    sentinel excluded."""
+    cap = tlo_c.shape[1]
+    dev = tlo_c.device
+    if trailing is None:
+        last = counts.clamp(max=cap - 1)[:, None]
+        cols = last.to(torch.int64)
+        tlo_c.scatter_(1, cols, 0)
+        thn_c.scatter_(1, cols, 1 << 16)
+    else:
+        # with a trail: [run, 0 x7, 1]; without: [0 x7, 1, 0]; then the
+        # sentinel
+        ht = (trailing > 0).to(torch.int32)
+        rows3 = (counts.clamp(max=cap - 3)[:, None] + torch.arange(
+            3, dtype=torch.int32, device=dev)[None, :])
+        cols = rows3.to(torch.int64)
+        tlo_c.scatter_(1, cols, torch.stack(
+            [ht * (TAG_RUN | ((trailing - 1) & 0x3F)), 256 << (8 * ht),
+             torch.zeros_like(ht)], 1))
+        thn_c.scatter_(1, cols, torch.stack(
+            [torch.full_like(ht, 6 << 16), (2 + ht) << 16,
+             torch.full_like(ht, 1 << 16)], 1))
+        last = rows3[:, 2:]
+    # int32 on both sides: a mixed compare over every row runs in int64
+    rows = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    off, incl = row_offsets(torch.where(rows <= last, thn_c >> 16, 0), start)
+    return off, incl, incl[:, -1] - 1
 
 
 def row_offsets(nb_c, start: int):
     """Exclusive running sums along the rows of nb_c (B, R) int32, which
-    it overwrites, each row's from start -> (off (B, R) int32, end (B,)
-    int32: where each row's sum ends).  One scan over the rows laid end to
+    it overwrites, each row's from start -> (off, incl) (B, R) int32, the
+    exclusive and inclusive sums.  One scan over the rows laid end to
     end: torch scans a 1-D tensor in one device-wide pass, on an H100
     about 12x faster than its scan along the rows of 32 x 2 M; each row's
     first count takes off what the rows before it sum to and adds start,
@@ -284,7 +223,7 @@ def row_offsets(nb_c, start: int):
     incl = torch.cumsum(nb_c.view(-1), dim=0, dtype=torch.int32).view(b, r)
     off = incl - nb_c
     off[:, 0] = start
-    return off, incl[:, -1]
+    return off, incl
 
 
 def nth_chunk(keep, n: int):
@@ -294,58 +233,77 @@ def nth_chunk(keep, n: int):
     return (before < n).sum(dim=1, dtype=torch.int32) - 1
 
 
-@tracing.traced("encode.fields")
-def chunk_fields(packed, n_px: int, channels: int):
-    """Stage 1.  packed (B, Nb) int32 -> (tlo, thn, keep, trailing): E1's
-    template of every pixel from the start state (thn bits 16+ the byte
-    count), keep on the pixels that emit bytes (differing pixels and RUN-62
-    flushes: the chunk rows) and each row's trailing run (B,).  Counts
-    B x Nb ``fields_rows``."""
+@tracing.traced("encode.emit")
+def emit_stream(off, tlo_c, thn_c, total_len, out_cap: int):
+    """The emit stage's second half: K4 writes the rows of stream_offsets'
+    templates at off -> (B, out_cap) uint8, zeroed past each stream's
+    total_len."""
+    out = emit_bytes(off, tlo_c, thn_c, out_cap)
+    col = torch.arange(out_cap, dtype=torch.int32, device=out.device)[None, :]
+    return torch.where(col < total_len[:, None], out, 0)
+
+
+def caps_ok(counts, chunk_cap: int, total_len, out_cap: int):
+    """(B,) bool: each row's chunk rows within K3's margin of chunk_cap
+    and its stream within out_cap.  A row flagged not ok overflowed a cap
+    and must be encoded again with larger ones."""
+    return (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
+
+
+def encode_rows(packed, n_px, channels: int, chunk_cap: int | None = None,
+                out_cap: int | None = None, carry=(), header=None,
+                close: bool = False):
+    """E1 -> K3 -> the emit stage over B rows of pixel words, each from the
+    state carried into it: the batch encoder's whole images, a streaming
+    window's rows and a sequence-parallel shard.
+
+    packed: (B, Nb) int32, Nb a multiple of 64; n_px: the valid pixels of
+    each row, (B,) int32, or an int for every row; carry: (prev_in (B,),
+    run_in (B,), seen_in (64, B)) int32, by default the start of an
+    image; header: None, or a (14,) uint8 header each stream starts with;
+    close: each stream ends with its trailing run and the end marker (n_px
+    an int).  chunk_cap and out_cap default to caps that no row overflows
+    (Nb + 3 chunk rows, 1 + channels bytes a pixel).
+
+    Returns (out (B, out_cap) uint8 streams zeroed past each length,
+    lengths (B,) int32, counts (B,) int32 chunk rows, and E1's run_out
+    (B, ceil(Nb / 2048)) and seen_out (64, B)).  Whole images come out
+    byte for byte as the compact-first stages make them, also where a cap
+    overflows (caps_ok)."""
     from .fields_kernel import BLK, encode_fields_planes
 
     b, nb = packed.shape
-    tracing.count("fields_rows", b * nb)
-    tlo, thn, run_out, _ = encode_fields_planes(
-        packed.contiguous(),
-        torch.full((b,), n_px, dtype=torch.int32, device=packed.device),
-        channels)
-    return tlo, thn, thn >= 1 << 16, run_out[:, (n_px - 1) // BLK]
-
-
-@tracing.traced("encode.templates")
-def chunk_offsets(tlo_c, thn_c, counts, keep, trailing, n_px: int):
-    """Stage 3.  K3's compacted templates (B, chunk_cap) int32 and counts,
-    with chunk_fields' keep and trailing -> append_tail's (off, tlo, thn,
-    total_len).  Counts B x chunk_cap ``template_rows``."""
-    b, chunk_cap = tlo_c.shape
-    tracing.count("template_rows", b * chunk_cap)
-    if chunk_cap < n_px:
-        # a row of more chunks than chunk_cap keeps its first chunk_cap: its
-        # trailing run counts from the last one kept, as compact-first
-        # counts it
-        trailing = torch.where(counts > chunk_cap,
-                               n_px - 1 - nth_chunk(keep, chunk_cap),
-                               trailing)
-    return append_tail(tlo_c, thn_c, counts, trailing)
-
-
-def _encode_kernel_impl(packed, n_px: int, header, channels: int,
-                        chunk_cap: int, out_cap: int):
-    """packed (B, Nb) int32 -> ((B, out_cap) uint8 streams, (B,) int32
-    lengths, (B,) bool ok), byte for byte the compact-first stages'
-    result, rows flagged not ok included."""
-    tlo, thn, keep, trailing = chunk_fields(packed, n_px, channels)
+    if chunk_cap is None:
+        chunk_cap = _round_up(nb + 3, 128)
+    if out_cap is None:
+        out_cap = _round_up((channels + 1) * nb + 64, EMIT_WIN)
+    v = n_px if torch.is_tensor(n_px) else torch.full(
+        (b,), n_px, dtype=torch.int32, device=packed.device)
+    with tracing.span("encode.fields"):
+        tracing.count("fields_rows", b * nb)
+        tlo, thn, run_out, seen_out = encode_fields_planes(
+            packed.contiguous(), v, channels, *carry)
+        keep = thn >= 1 << 16  # differing pixels and RUN-62 flushes
     (tlo_c, thn_c), counts = compact_rows((tlo, thn), keep, cap=chunk_cap)
-    off, tlo_c, thn_c, total_len = chunk_offsets(tlo_c, thn_c, counts, keep,
-                                                 trailing, n_px)
-    with tracing.span("encode.emit"):
-        out = emit_bytes(off, tlo_c, thn_c, out_cap)
+    with tracing.span("encode.templates"):
+        tracing.count("template_rows", b * chunk_cap)
+        trailing = None
+        if close:
+            trailing = run_out[:, (n_px - 1) // BLK]
+            if chunk_cap < n_px:
+                # a row of more chunks than chunk_cap keeps its first
+                # chunk_cap: its trailing run counts from the last one
+                # kept, as compact-first counts it
+                trailing = torch.where(
+                    counts > chunk_cap,
+                    n_px - 1 - nth_chunk(keep, chunk_cap), trailing)
+        off, incl, lens = stream_offsets(
+            tlo_c, thn_c, counts, 0 if header is None else 14, trailing)
+        del incl  # the lane encoder's stream ends: freed before K4's output
+    out = emit_stream(off, tlo_c, thn_c, lens, out_cap)
+    if header is not None:
         out[:, :14] = header
-        col = torch.arange(out_cap, dtype=torch.int32,
-                           device=out.device)[None, :]
-        out = torch.where(col < total_len[:, None], out, 0)
-    ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
-    return out, total_len, ok
+    return out, lens, counts, run_out, seen_out
 
 
 def encode_caps(nb: int, channels: int, chunk_cap: int | None = None,
@@ -368,8 +326,9 @@ def encode_batch_checked(packed, n_px: int, header, channels: int, *,
     overflowed a tighter cap and must be encoded again with a larger one."""
     chunk_cap, out_cap = encode_caps(packed.shape[1], channels, chunk_cap,
                                      out_cap)
-    return _encode_kernel_impl(packed, n_px, header, channels, chunk_cap,
-                               out_cap)
+    out, lens, counts, _, _ = encode_rows(packed, n_px, channels, chunk_cap,
+                                          out_cap, header=header, close=True)
+    return out, lens, caps_ok(counts, chunk_cap, lens, out_cap)
 
 
 def encode_batch(packed, n_px: int, header, channels: int):
@@ -545,20 +504,25 @@ def lane_table(pk_c, pf_c, counts, bits):
     valid_c = rows < counts[:, None]
     pk_c = torch.where(valid_c, pk_c, 0)
     pf_c = torch.where(valid_c, pf_c, 0)
-    # a chunk row's stream: the tail1 rows strictly before it
-    t1_i = (((pf_c >> b_t1) & 1) == 1).to(torch.int32)
-    seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
     nq_c = valid_c & (((pf_c >> b_nq) & 1) == 1)
-    return _last_same_hash_value_seg(pk_c, hash6(pk_c), nq_c, seg_c)
+    return _last_same_hash_value_seg(pk_c, hash6(pk_c), nq_c,
+                                     _stream_ids(((pf_c >> b_t1) & 1) == 1))
+
+
+def _stream_ids(t1):
+    """Each compacted row's stream in its lane: the tail1 rows (t1 (L, C)
+    bool) strictly before it, (L, C) int32."""
+    t1_i = t1.to(torch.int32)
+    return torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
 
 
 @tracing.traced("encode.templates")
 def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     """Stage 3 of the lane encoder: the compacted rows (L, chunk_cap) int32
     and their counts -> (off, tlo, thn, incl, t1, total_len): each row's
-    byte offset and 6-byte template (thn bits 16+ the byte count), with a
-    1-byte sentinel row at counts; incl = off + the row's bytes, which is
-    a stream's exclusive end at its tail1 rows (t1); each lane's bytes.
+    6-byte template (thn bits 16+ the byte count) and stream_offsets'
+    sentinel, offsets and lengths; incl, a row's inclusive byte end, is a
+    stream's exclusive end at its tail1 rows (t1).
     The segmented same-hash scan runs here unless table_val, lane_table's
     result, is given (a stage profile times the scan on its own).  Counts
     L x chunk_cap ``template_rows``."""
@@ -589,10 +553,7 @@ def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     # for it and needs no channel count
     h = hash6(pk_c)
     if table_val is None:
-        # a chunk row's stream: the tail1 rows strictly before it
-        t1_i = t1.to(torch.int32)
-        seg_c = torch.cumsum(t1_i, dim=1, dtype=torch.int32) - t1_i
-        table_val = _last_same_hash_value_seg(pk_c, h, nq_c, seg_c)
+        table_val = _last_same_hash_value_seg(pk_c, h, nq_c, _stream_ids(t1))
     own_len, own = op_bytes(pk_c, prev_c, nq_c, table_val, h, 4)
     run_byte = torch.where(nq_c, TAG_RUN | ((gap - 1) & 0x3F), TAG_RUN | 61)
     has_run = torch.where(nq_c, gap > 0, run_row)
@@ -604,17 +565,8 @@ def lane_templates(pk_c, pf_c, counts, bits, table_val=None):
     tlo = torch.where(t0, ht * (pk_c & 0xFF),
                       torch.where(t1, ((1 - ht) << 8) | (ht << 16), tlo))
     thn = torch.where(t0, 6 << 16, torch.where(t1, (2 + ht) << 16, thn))
-
-    # a 1-byte sentinel row at counts (clamped into the rows, as JAX's
-    # dynamic_update_slice clamps) keeps the last real row covered in K4
-    at = counts.clamp(max=chunk_cap - 1).to(torch.int64)[:, None]
-    tlo = tlo.scatter(1, at, 0)
-    thn = thn.scatter(1, at, 1 << 16)
-
-    nb_c = torch.where(rows <= counts[:, None], (thn >> 16) & 0xFFFF, 0)
-    incl = torch.cumsum(nb_c, dim=1, dtype=torch.int32)
-    total_len = incl[:, -1] - 1  # sentinel byte excluded
-    return incl - nb_c, tlo, thn, incl, t1, total_len
+    off, incl, total_len = stream_offsets(tlo, thn, counts, 0)
+    return off, tlo, thn, incl, t1, total_len
 
 
 def _encode_lanes_impl(packed, flags, chunk_cap: int, out_cap: int,
@@ -639,13 +591,8 @@ def _encode_lanes_impl(packed, flags, chunk_cap: int, out_cap: int,
     (ends,), nseg = compact_rows((incl,), t1, cap=ends_cap)
     cols = torch.arange(ends_cap, dtype=torch.int32, device=dev)[None, :]
     ends = torch.where(cols < nseg[:, None], ends, 0)
-
-    with tracing.span("encode.emit"):
-        out = emit_bytes(off, tlo, thn, out_cap)
-        col = torch.arange(out_cap, dtype=torch.int32, device=dev)[None, :]
-        out = torch.where(col < total_len[:, None], out, 0)
-    ok = (counts + CBLK + 128 <= chunk_cap) & (total_len <= out_cap)
-    return out, ends, nseg, ok
+    out = emit_stream(off, tlo, thn, total_len, out_cap)
+    return out, ends, nseg, caps_ok(counts, chunk_cap, total_len, out_cap)
 
 
 def encode_lanes_checked(packed, flags, *, chunk_cap: int | None = None,

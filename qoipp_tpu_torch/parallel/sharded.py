@@ -22,7 +22,8 @@ SP encode: one image's pixels shard over ``seq``; the state entering each
 shard is a closed-form function of the pixels before it (the previous
 shard's last pixel; runs and table by folding per-shard summaries, as
 ``ops.device_stream.lane_carries`` folds its lanes), so every shard
-encodes at once: E1, K3, K4.
+encodes at once (``ops.encode.encode_rows``: E1, K3, K4), the last
+closing the stream.
 """
 
 from __future__ import annotations
@@ -30,14 +31,12 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..common import END_MARKER
 from ..convert import resolve_device
 from ..ops import decode as dec_ops
 from ..ops import replay_kernel as rk
 from ..ops.bitops import START_PIXEL_PACKED
-from ..ops.device_stream import _encode_rows, fold_summaries, lane_summaries
-from ..ops.encode import TILE
-from ..ops.fields_kernel import BLK
+from ..ops.device_stream import fold_summaries, lane_summaries
+from ..ops.encode import TILE, encode_rows
 from . import mesh as mesh_mod
 
 _U32 = 1 << 32
@@ -163,8 +162,6 @@ def make_sp_encode(mesh, n_local: int, channels: int, axis="seq",
     n_dev = mesh_mod.axis_size(mesh, axis)
     if n_local % TILE:
         raise ValueError(f"n_local {n_local} is not a multiple of {TILE}")
-    # the pending run byte (if any) and the end marker
-    marker = torch.tensor([0, *END_MARKER], dtype=torch.uint8, device=dev)
 
     def sp_encode(packed, n_px_last: int):
         if not 0 < n_px_last <= n_local:
@@ -183,21 +180,13 @@ def make_sp_encode(mesh, n_local: int, channels: int, axis="seq",
         run_in, seen_in = fold_summaries(
             summ, torch.zeros((), dtype=torch.int32, device=dev),
             torch.zeros(64, dtype=torch.int32, device=dev))
-        out, lens, run_out, _ = _encode_rows(
-            packed[None], v, prev_in, run_in[my : my + 1],
-            seen_in[:, my : my + 1].contiguous(), channels)
-        body, length = out[0], lens[0]
-        if not is_last:
-            return body, length
-        run = run_out[0, (n_px - 1) // BLK]
-        has = (run > 0).to(torch.int32)
-        tail = marker.clone()
-        tail[0] = (0xC0 | (run - 1).clamp(min=0)).to(torch.uint8)
-        # the tail's bytes from has ? 0 : 1 on go to length onwards
-        rel = (torch.arange(body.shape[0], device=dev) - length + 1 - has)
-        put = (rel >= 1 - has) & (rel < tail.shape[0])
-        body = torch.where(put, tail[rel.clamp(0, tail.shape[0] - 1)], body)
-        return body, length + 8 + has
+        # the last shard's stream closes with the pending run byte and the
+        # end marker
+        out, lens, *_ = encode_rows(
+            packed[None], n_px, channels, carry=(
+                prev_in, run_in[my : my + 1],
+                seen_in[:, my : my + 1].contiguous()), close=is_last)
+        return out[0], lens[0]
 
     return sp_encode
 

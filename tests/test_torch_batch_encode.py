@@ -1,6 +1,6 @@
 """The batch encoder's order of stages on the CPU: fields-first
-(ops/encode._encode_kernel_impl: E1's templates of every pixel, K3 on
-them, the tail rows and offsets, K4) against the compact-first chain
+(ops/encode.encode_rows: E1's templates of every pixel, K3 on them, the
+emit stage's tail rows, offsets and K4) against the compact-first chain
 (selfcheck.encode_compact_first: chunk_positions, K3's plain version on
 the pixels, chunk_templates, K4's plain version) and against the JAX
 package's encode_batch_checked, whole streams, lengths and ok flags, on
@@ -158,7 +158,7 @@ def test_fields_first_equals_compact_first(case, channels):
     # a row of more chunks than chunk_cap: the JAX K3's clamped DMA leaves
     # its compacted rows undefined, so its bytes are compared with the
     # compact-first chain's alone; every other row, ok or not, whole
-    _, keep, _ = encode.chunk_positions(packed, n_px)
+    _, keep, _ = selfcheck.chunk_positions(packed, n_px)
     cap, _ = encode.encode_caps(packed.shape[1], channels, chunk_cap)
     whole = keep.sum(dim=1).numpy() <= cap
     assert np.array_equal(lens[whole], jlens[whole])

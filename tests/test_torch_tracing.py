@@ -139,7 +139,7 @@ PATHS = {
         "decode.window", "decode.fields", "decode.replay", "decode.place"}),
     "stream_encode": (_stream_encode, {
         "host.upload", "stream.carry", "encode.fields", "encode.compact",
-        "encode.emit", "host.fetch"}),
+        "encode.templates", "encode.emit", "host.fetch"}),
 }
 
 
@@ -343,7 +343,8 @@ def test_stream_encode_counters_equal_what_it_moves(lanes):
     assert cnt["h2d_bytes"] == up and cnt["h2d_pageable_bytes"] == up
     assert cnt["fields_rows"] == windows * enc.nb
     assert cnt["host_syncs"] == names.count("host.fetch") == windows
-    for name in ("host.upload", "encode.fields", "encode.emit"):
+    for name in ("host.upload", "encode.fields", "encode.templates",
+                 "encode.emit"):
         assert names.count(name) == windows, name
     assert names.count("stream.carry") == (windows if lanes > 1 else 0)
 
