@@ -221,6 +221,7 @@ from qoipp_tpu_torch.ops import (  # noqa: E402
     emit_window,
     encode as enc_ops,
     fields_kernel,
+    gather_kernel,
     place_kernel,
     place_window,
     probes,
@@ -288,6 +289,8 @@ KERNELS = {  # name -> (source, the TPU kernel's function it replaces)
                      "benchmarks/profile_r2.py:191"),
     "chunk_starts": ("qoipp_tpu_torch/csrc/boundary.cu",
                      "none: qoipp_tpu/ops/boundary.py scans in plain JAX"),
+    "gather_pixels": ("qoipp_tpu_torch/csrc/gather.cu",
+                      "none: qoipp_tpu/models/packed.py unpacks on the host"),
 }
 # 32-bit operations per element of each kernel's work (per row and lane for
 # the replays: class decode, selects, per-byte add, hash, table write; per
@@ -1179,6 +1182,60 @@ def phase5_chunk_starts(run, sparse, launches, dev, card):
         **{f"window_{k}": v for k, v in window.items() if k != "bytes"})
 
 
+def phase5_gather(s, launches, card):
+    """G1 on ServingCodec decode of the committed corpus, its files once
+    (one serving_corpus_decode call holds them on average): the decode
+    against the oracle, each engine part's G1 call held against the plain
+    version over its whole output from a sentinel, one launch a call;
+    then the call's G1 launches together timed (event ms, device ms by
+    profiler group, the bound: each word read and each output byte
+    written, 4 + channels bytes a pixel) beside the plain version."""
+    codec, k = s["codec"], CORPUS_STREAMS
+    with _recorded((gather_kernel, ("gather_pixels",))) as calls:
+        got = codec.decode(s["blobs"][:k])
+    _check_all(got, s["raws"][:k], s["names"][:k],
+               "serving decode of the corpus once")
+    parts = [(args[0], args[1], args[3]) for _, args, _, _ in calls]
+    nbytes = calls[0][1][2].numel()
+    err = 0
+    for src, table, _ in parts:
+        before = kernels.LAUNCHES["gather_pixels"]
+        err = max(err, selfcheck.gather_err(src, table, nbytes))
+        expect(kernels.LAUNCHES["gather_pixels"] == before + 1,
+               "gather_pixels launched other than once a part")
+    expect(err == 0, "gather_pixels disagrees with its plain version on "
+           "the serving corpus")
+    out = torch.empty(nbytes, dtype=torch.uint8, device=codec.device)
+
+    def call():
+        for src, table, table_dev in parts:
+            gather_kernel.gather_pixels(src, table, out, table_dev)
+
+    def plain():
+        for src, table, _ in parts:
+            gather_kernel.gather_pixels_plain(src, table, out)
+
+    ms = timed_ms(call)
+    groups = profile.profile_path(call, calls=20, warmup=1)["groups"]
+    expect("G1 gather" in groups, "the profiler saw no gather_pixels kernel")
+    plain_ms = timed_ms(plain, warmup=1, runs=3)
+    rows = np.concatenate([t for _, t, _ in parts])
+    px = int(rows[:, 1].sum())
+    moved = int((rows[:, 1] * (4 + rows[:, 3])).sum())
+    bound_s, bound_by = bound(moved, 0)
+    device = groups["G1 gather"][0]
+    what = (f"{len(parts)} parts, {len(rows)} segments, {px} px, "
+            f"{nbytes} bytes out")
+    log(f"phase 5: gather_pixels (serving decode of the corpus once: "
+        f"{what}): {ms:.4f} ms, device {device:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_s * 1e3:.5f} ms ({bound_by}), "
+        f"share {bound_s * 1e3 / device:.3f}; launch: a block of 256 "
+        f"threads a {gather_kernel.TILE_PX}-pixel tile; ptxas: "
+        f"{ptxas_of('gather_pixels_kernel')}; on {card}")
+    return _kernel_row("gather_pixels", launches["gather_pixels"], err, ms,
+                       plain_ms, moved, 0, device_ms=device, shape=what)
+
+
 def phase5_logfill(run, launches, dev, card):
     """K6 on the one-shot RGB decode's flagged words, event and device
     time; its launch configuration logged."""
@@ -2058,7 +2115,13 @@ _RECORDED = {
     "compact_rows": ("compact", compact_kernel.compact_rows_reference),
     "emit_bytes": ("emit", emit_kernel.emit_bytes_reference),
     "chunk_starts_batch": ("chunk_starts",
-                           boundary.chunk_starts_batch_plain)}
+                           boundary.chunk_starts_batch_plain),
+    # G1 writes into the output it is given, which the copy the plain
+    # version writes into already holds: the bytes inside the segments
+    # are held (phase 5 holds the whole output from a sentinel)
+    "gather_pixels": ("gather_pixels",
+                      lambda src, table, out, table_dev=None:
+                      gather_kernel.gather_pixels_plain(src, table, out))}
 # where every encoder but the lanes' (ops/encode.encode_rows: the batch
 # encoder, the stream windows, sp encode; it imports E1 from its module
 # when called) looks up E1, K3 and K4; where dp decode (BatchPipeline; the
@@ -2072,12 +2135,15 @@ _DP_CALLS = ((boundary, ("chunk_starts_batch",)),
 # where the tools and examples reach them: the one-shot codec
 # (ops/decode, ops/encode), BatchPipeline, SplitDecoder and the split
 # windows (models/split), the device stream codecs and ServingCodec; the
-# chunk-start scan in ops/boundary, where every decode path finds it
+# chunk-start scan in ops/boundary, where every decode path finds it; G1
+# in ops/gather_kernel, where the packed and split decoders' one unpack
+# (models/packed.gather_streams) finds it
 _TOOLS_CALLS = ((boundary, ("chunk_starts_batch",)),
                 (replay_kernel, ("replay_batch_carry", "replay_batch_summary",
                                  "logfill_batch")),
                 (place_kernel, ("place_fill",)),
-                (compact_kernel, ("compact_rows",))) + _ENCODE_CALLS
+                (compact_kernel, ("compact_rows",)),
+                (gather_kernel, ("gather_pixels",))) + _ENCODE_CALLS
 
 
 def _shapes(args, kwargs=None):
@@ -2768,10 +2834,11 @@ def main():
            "emit"), launches)
     sparse, dense = split_runs
     drive("the split path (sparse)", lambda: phase3_split(sparse),
-          ("chunk_starts", "replay_summary", "compact", "place_fill"),
-          launches)
+          ("chunk_starts", "replay_summary", "compact", "place_fill",
+           "gather_pixels"), launches)
     drive("the split path (dense)", lambda: phase3_split(dense),
-          ("chunk_starts", "replay_summary", "place_fill"), launches)
+          ("chunk_starts", "replay_summary", "place_fill", "gather_pixels"),
+          launches)
     drive("the one-shot path (decode rgb)",
           lambda: phase3_oneshot_decode(oneshot[0]),
           ("chunk_starts", "replay", "logfill"), launches)
@@ -2802,10 +2869,10 @@ def main():
     serve = phase3_prepare_serving(dev)
     drive("the serving path", lambda: phase3_serving(serve),
           ("chunk_starts", "replay", "place_fill", "replay_summary",
-           "fields", "compact", "emit"), launches)
+           "fields", "compact", "emit", "gather_pixels"), launches)
     drive("the packed lanes", lambda: phase3_packed(serve, dev),
-          ("chunk_starts", "replay", "place_fill", "compact", "emit"),
-          launches)
+          ("chunk_starts", "replay", "place_fill", "compact", "emit",
+           "gather_pixels"), launches)
     drive("the api torch backend", lambda: phase3_api(serve, dev),
           ("chunk_starts", "replay", "logfill", "fields", "compact",
            "emit"), launches)
@@ -2814,6 +2881,7 @@ def main():
     log(f"phase 4: launches over all paths: {launches}")
     rows = phase5_kernels_at_main_shapes(runs[0], launches, card)
     rows.append(phase5_chunk_starts(runs[0], sparse, launches, dev, card))
+    rows.append(phase5_gather(serve, launches, card))
     k5, k2_split = phase5_split_kernels(sparse, launches, card)
     rows.append(k5)
     k2 = next(r for r in rows if r["name"] == "place_fill")

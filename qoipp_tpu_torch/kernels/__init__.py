@@ -1,7 +1,8 @@
 """Builder, loader, launch counters and ctypes bindings of the CUDA kernels.
 
 The port's kernels (the fifteen that replace the JAX package's Pallas
-kernels, and the chunk-start scan of ``ops/boundary``) live in
+kernels, the chunk-start scan of ``ops/boundary`` and the pixel gather of
+``ops/gather_kernel``) live in
 ``qoipp_tpu_torch/csrc`` as CUDA C++ for sm_90a behind a plain C
 interface.  On first use they are built with
 ``nvcc`` (one compiler process per source, all at once, then one link)
@@ -33,7 +34,7 @@ LIB_PATH = BUILD_DIR / "libqoipp_kernels.so"
 SOURCES = ("replay.cu", "place_fill.cu", "compact.cu", "emit.cu",
            "logfill.cu", "fields.cu", "place_window.cu", "place_fill2.cu",
            "place_grouped.cu", "place_narrow.cu", "place_variant.cu",
-           "emit_window.cu", "probes.cu", "boundary.cu")
+           "emit_window.cu", "probes.cu", "boundary.cu", "gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,7 +44,7 @@ LAUNCHES = {"replay": 0, "place_fill": 0, "compact": 0, "emit": 0,
             "place_wide": 0, "place_fill2": 0, "place_fill_narrow": 0,
             "place_variant": 0, "place_grouped": 0, "emit_window": 0,
             "grid_step": 0, "onehot_place": 0, "dep_chain": 0,
-            "chunk_starts": 0}
+            "chunk_starts": 0, "gather_pixels": 0}
 
 _P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_uint32)
@@ -97,6 +98,8 @@ _SIGNATURES = {
     "qk_chunk_starts": [_P, _L, _P, _P, _L, _I, _L, _P],
     # bytes a block
     "qk_chunk_starts_tile": [],
+    # src, n_words, table, nseg, tile_groups, ntiles, out, out_bytes, stream
+    "qk_gather_pixels": [_P, _L, _P, _I, _I, _L, _P, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -103,6 +103,14 @@ bit-exact.  The cases:
               seventh byte, and views of wider planes whose rows are 16-,
               8-, 4- and 1-byte aligned (the stream window's (L, qb + 8)
               planes among them);
+  gather_pixels (G1; the whole output, a sentinel around the segments):
+              every GATHER_CASES case: RGB and RGBA segments from every
+              source word alignment to every output byte alignment (16-,
+              4- and 1-byte stores), of 1-5 pixels, one pixel short of,
+              at and past a tile, and of several tiles; a segment that
+              ends at the source's last word where the word count is no
+              multiple of 4; 300 segments of a split group's shape (the
+              block's search over many rows);
   grid_step (E8): random words and 0xFFFFFFFF, which wraps to 0;
   onehot_place (E9, to TOLERANCE): unsorted targets, a bin hit 64 times,
               targets outside the bins, K not a multiple of the block.
@@ -120,8 +128,8 @@ import numpy as np
 import torch
 
 from ..ops import (boundary, compact_kernel, emit_kernel, emit_window,
-                   encode, fields_kernel, place_kernel, place_window, probes,
-                   replay_kernel)
+                   encode, fields_kernel, gather_kernel, place_kernel,
+                   place_window, probes, replay_kernel)
 from ..ops.bitops import START_PIXEL_PACKED, hash6
 
 REPLAY_TILE = 1024  # rows a tile of csrc/replay.cu (kTile)
@@ -1168,13 +1176,67 @@ def _chunk_starts(device) -> int:
     return err
 
 
+GATHER_CASES = ("alignments", "tile edges", "source tail", "many segments")
+GATHER_SENTINEL = 0xA5
+
+
+def gather_case(name: str, rng, device):
+    """(src words, segment table, output bytes) of a G1 edge case; no two
+    segments' outputs touch."""
+    tile = gather_kernel.TILE_PX
+    n_words = 1 << 16
+    if name == "alignments":  # source 0-3 x output 0-15 x RGB, RGBA
+        lens = [(1, 2, 3, 4, 5, 37)[k % 6] for k in range(128)]
+    elif name == "tile edges":
+        lens = [tile - 1, tile, tile + 1, tile - 3, 3 * tile + 5, 1]
+    elif name == "source tail":
+        n_words = 3 * tile + 7
+        lens = [5, tile + 2, n_words]
+    else:
+        n_words = 300 * 700
+        lens = rng.integers(1, 700, 300).tolist()
+    segs, dst = [], 0
+    for k, n in enumerate(lens):
+        if name == "source tail":
+            s = n_words - n
+        else:
+            s = int(rng.integers(0, n_words - n - 3))
+        c = 3 + k % 2
+        dst += 1 + int(rng.integers(0, 4))
+        if name == "alignments":
+            s += k % 4 - s % 4
+            c = 3 + k // 64
+            dst += ((k // 4) % 16 - dst) % 16
+        segs.append((s, n, dst, c))
+        dst += n * c
+    return (_t(_words(rng, n_words), device),
+            gather_kernel.segment_table(segs), dst + 7)
+
+
+def gather_err(src, table, out_bytes: int) -> int:
+    """|kernel - plain| of G1 over its whole output, both written into a
+    sentinel."""
+    got, want = (torch.full((out_bytes,), GATHER_SENTINEL, dtype=torch.uint8,
+                            device=src.device) for _ in range(2))
+    gather_kernel.gather_pixels(src, table, got)
+    gather_kernel.gather_pixels_plain(src, table, want)
+    return max_abs_err(got, want)
+
+
+def _gather_pixels(device) -> int:
+    rng = np.random.default_rng(25)
+    return max(gather_err(*gather_case(name, rng, device))
+               for name in GATHER_CASES)
+
+
 CASES = {"replay": _replay, "place_fill": _place_fill, "compact": _compact,
          "emit": _emit, "replay_summary": _replay_summary,
          "logfill": _logfill, "fields": _fields, "place_wide": _place_wide,
          "place_fill2": _place_fill2, "place_fill_narrow": _place_fill_narrow,
          "place_variant": _place_variant, "place_grouped": _place_grouped,
          "emit_window": _emit_window, "grid_step": _grid_step,
-         "onehot_place": _onehot_place, "chunk_starts": _chunk_starts}
+         "onehot_place": _onehot_place, "chunk_starts": _chunk_starts,
+         "gather_pixels": _gather_pixels}
 
 
 def check(name: str, device):

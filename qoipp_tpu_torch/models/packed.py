@@ -30,16 +30,16 @@ import numpy as np
 import torch
 
 from ..common import Desc, read_header, write_header
-from ..convert import resolve_device, words_to_numpy
+from ..convert import resolve_device
 from ..ops import boundary
 from ..ops import decode as dec_ops
 from ..ops import encode as enc_ops
-from ..ops import place_kernel
+from ..ops import gather_kernel, place_kernel
 from ..ops import replay_kernel as rk
 from ..ops.compact_kernel import BLK as CBLK
 from ..ops.emit_kernel import WIN as EMIT_WIN
 from ..utils import tracing
-from ..utils.transfer import fetch, read_flag, upload
+from ..utils.transfer import fetch, fetch_pinned, read_flag, upload
 from ..utils.transport import stage_h2d
 
 
@@ -58,17 +58,6 @@ def _bucket_mult(n: int, m: int) -> int:
         if frac >= n and frac % m == 0:
             return frac
     return b
-
-
-def _unpack_pixels_np(packed: np.ndarray, channels: int) -> np.ndarray:
-    """(N,) uint32 words -> (N * channels,) uint8 pixels."""
-    out = np.empty((packed.size, channels), np.uint8)
-    out[:, 0] = packed & 0xFF
-    out[:, 1] = (packed >> 8) & 0xFF
-    out[:, 2] = (packed >> 16) & 0xFF
-    if channels == 4:
-        out[:, 3] = packed >> 24
-    return out.reshape(-1)
 
 
 def _pack_pixels_np(raw: np.ndarray, channels: int) -> np.ndarray:
@@ -182,6 +171,49 @@ def _decode_lanes(regions, seg_flat, chunks_sizes, qb: int, n_cap: int,
     return place_kernel.place_fill(pix_before, emits, n_cap)
 
 
+# a gather_streams part: a decoder's (L, n_cap) int32 pixel words and its
+# streams, each (output index, Desc, [(first word, first pixel, pixels)])
+Part = Tuple[torch.Tensor, List[Tuple[int, Desc, List[Tuple[int, int, int]]]]]
+
+
+def packed_part(pixels, where, descs, idxs) -> Part:
+    """A PackedDecoder result as a gather_streams part: stream idxs[k] is
+    one run of its lane from its pixel offset."""
+    n_cap = pixels.shape[1]
+    return pixels, [(i, d, [(Li * n_cap + poff, 0, d.width * d.height)])
+                    for i, (Li, poff), d in zip(idxs, where, descs)]
+
+
+@tracing.traced("host.unpack")
+def gather_streams(parts: Sequence[Part]) -> List[np.ndarray]:
+    """Decoded pixel words -> each stream's raw pixels ((w * h * channels,)
+    uint8), in output order, which the parts' indices 0 .. n - 1 give.
+
+    The streams' bytes lie back to back in one device buffer in output
+    order: one segment table for all parts is uploaded, G1
+    (ops/gather_kernel) writes each part's segments, and one pinned fetch
+    brings the buffer over; each result is a slice of one fresh array."""
+    descs = {i: d for _, ss in parts for i, d, _ in ss}
+    if not descs:
+        return []
+    size = [descs[i].width * descs[i].height * int(descs[i].channels)
+            for i in range(len(descs))]
+    off = np.cumsum([0] + size)
+    tables = [gather_kernel.segment_table(
+        (w, n, int(off[i]) + p0 * int(d.channels), int(d.channels))
+        for i, d, pieces in ss for w, p0, n in pieces) for _, ss in parts]
+    dev = parts[0][0].device
+    table_dev = upload(np.concatenate(tables), dev)
+    out = torch.empty(int(off[-1]), dtype=torch.uint8, device=dev)
+    r = 0
+    for (pixels, _), table in zip(parts, tables):
+        gather_kernel.gather_pixels(pixels, table, out,
+                                    table_dev[r: r + len(table)])
+        r += len(table)
+    host = fetch_pinned(out)
+    return [host[off[i]: off[i + 1]] for i in range(len(size))]
+
+
 class PackedDecoder:
     """Decode mixed QOI streams (any geometry, RGB or RGBA) through packed
     replay lanes.
@@ -204,12 +236,10 @@ class PackedDecoder:
 
     def decode(self, blobs: Sequence) -> List[np.ndarray]:
         """QOI byte streams -> their raw pixels (each stream's channels),
-        submission order, one bulk fetch."""
+        submission order, one fetch (gather_streams)."""
         packed, where, descs = self.decode_to_device(blobs)
-        packed = words_to_numpy(packed)  # one bulk fetch
-        return [_unpack_pixels_np(
-            packed[Li, poff: poff + d.width * d.height], int(d.channels))
-            for (Li, poff), d in zip(where, descs)]
+        return gather_streams([packed_part(packed, where, descs,
+                                           range(len(descs)))])
 
     def decode_to_device(self, blobs: Sequence):
         """Plan, upload and decode: returns ((l_total, n_cap) int32 pixels

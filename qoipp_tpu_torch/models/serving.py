@@ -26,14 +26,14 @@ import numpy as np
 import torch
 
 from ..common import Desc
-from ..convert import resolve_device, words_to_numpy
+from ..convert import resolve_device
 from ..utils import tracing
 from ..utils.transfer import fetch, read_flag
 from ..utils.transport import stage_h2d
 from .packed import (PackedDecoder, PackedEncoder, _parse_streams,
-                     _unpack_pixels_np)
+                     gather_streams, packed_part)
 from .scheduler import BucketedCodec, _pad_b
-from .split import SplitDecoder
+from .split import SplitDecoder, split_part
 
 
 def _size_tiers(idxs: Sequence[int], size: Dict[int, int], span: int,
@@ -238,23 +238,16 @@ class ServingCodec:
         return n, packed_parts, split_parts
 
     def decode_finish(self, dispatched) -> List[np.ndarray]:
-        """Fetch a decode plan's device results (one bulk copy an engine
-        output) and cut and unpack each stream's pixels on the host."""
-        n, packed_parts, split_parts = dispatched
-        results: List[Optional[np.ndarray]] = [None] * n
-        with tracing.span("host.unpack"):
-            for tier_idxs, (dev, where, pdescs) in packed_parts:
-                host = words_to_numpy(dev)
-                for i, (Li, poff), d in zip(tier_idxs, where, pdescs):
-                    results[i] = _unpack_pixels_np(
-                        host[Li, poff: poff + d.width * d.height],
-                        int(d.channels))
-            # the rounds went into split_rounds where the route ran them
-            for idxs, (dev, where, sdescs, _rounds) in split_parts:
-                for i, px in zip(idxs,
-                                 SplitDecoder.gather(dev, where, sdescs)):
-                    results[i] = px
-        return results  # type: ignore[return-value]
+        """A decode plan's device results -> each stream's raw pixels,
+        submission order: every engine part's streams gathered on the
+        device into one buffer, and one fetch (gather_streams)."""
+        _, packed_parts, split_parts = dispatched
+        # the rounds went into split_rounds where the route ran them
+        return gather_streams(
+            [packed_part(dev, where, descs, idxs)
+             for idxs, (dev, where, descs) in packed_parts]
+            + [split_part(dev, where, descs, idxs)
+               for idxs, (dev, where, descs, _rounds) in split_parts])
 
     # -- encode -------------------------------------------------------------
 

@@ -35,7 +35,6 @@ import numpy as np
 import torch
 
 from .. import oracle
-from ..convert import words_to_numpy
 from ..ops import boundary
 from ..ops import compact_kernel as ck
 from ..ops import decode as dec_ops
@@ -45,8 +44,8 @@ from ..ops.decode import seam_fixpoint, true_init_row
 from ..utils import tracing
 from ..utils.transfer import upload
 from ..utils.transport import stage_h2d
-from .packed import (_bucket_mult, _parse_streams, _round_up,
-                     _unpack_pixels_np)
+from .packed import (Part, _bucket_mult, _parse_streams, _round_up,
+                     gather_streams)
 
 
 def _compact_cap(max_chunks: int, qb: int) -> int:
@@ -165,6 +164,16 @@ def _decode_window_lanes(regions, seg_lens, prev0, seen_col0, max_chain: int,
     return packed, n_pix, consumed, fin[:1], fin[1:], rounds
 
 
+def split_part(pixels, where, descs, idxs) -> Part:
+    """A SplitDecoder result as a gather_streams part: stream idxs[k] is
+    one run a lane, from the lane's first pixel to its place in the
+    stream."""
+    n_cap = pixels.shape[1]
+    return pixels, [(i, d, [(lane * n_cap, p0, p1 - p0)
+                            for lane, p0, p1 in segs])
+                    for i, segs, d in zip(idxs, where, descs)]
+
+
 class SplitDecoder:
     """Decode large QOI streams by splitting each across replay lanes.
 
@@ -191,18 +200,11 @@ class SplitDecoder:
         return self.gather(packed, where, descs)
 
     @staticmethod
-    @tracing.traced("host.unpack")
     def gather(packed, where, descs) -> List[np.ndarray]:
         """decode_to_device's lanes -> each stream's raw pixels (numpy
-        uint8), one host fetch."""
-        packed = words_to_numpy(packed)
-        out = []
-        for segs, d in zip(where, descs):
-            px = np.empty(d.width * d.height, np.uint32)
-            for lane, p0, p1 in segs:
-                px[p0:p1] = packed[lane, : p1 - p0]
-            out.append(_unpack_pixels_np(px, int(d.channels)))
-        return out
+        uint8), one fetch (gather_streams)."""
+        return gather_streams([split_part(packed, where, descs,
+                                          range(len(descs)))])
 
     def decode_to_device(self, blobs: Sequence):
         """Plan, upload and decode.  Returns ((L, n_cap) int32 pixels on

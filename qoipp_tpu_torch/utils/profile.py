@@ -53,6 +53,7 @@ GROUPS = (
     ("K6 logfill", "logfill"),
     ("E1 fields", "fields_"),  # fields_kernel, fields_summary_kernel
     ("boundary scan", "chunk_starts"),
+    ("G1 gather", "gather_pixels"),
     ("copies", "memcpy"),
     ("fills", "memset"),
     ("scans (cumsum, cummax)", "scan"),

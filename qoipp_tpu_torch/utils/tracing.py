@@ -32,7 +32,8 @@ around it.  Counters: ``h2d_bytes``, ``h2d_pageable_bytes``,
 ``d2h_bytes``, ``host_syncs``, ``split_rounds``, ``packed_recodes``,
 ``template_rows``, ``fields_rows``, ``boundary_scans`` and
 ``boundary_scan_bytes`` (the chunk-start scan's launches and the region
-bytes they read).
+bytes they read), and ``gather_px`` (the pixels the decodes' gather wrote,
+``ops/gather_kernel``).
 """
 
 from __future__ import annotations

@@ -9,8 +9,13 @@ copy's stream against the pinned block and hands the block out again only
 after the copy has finished, so the pinned tensor may be dropped once the
 copy is issued.  On the CPU the array is wrapped without a copy.
 
-``fetch`` and ``read_flag`` wait for the device: each is one ``host.fetch``
-or ``host.sync`` span and one ``host_syncs`` count (``utils/tracing``).
+``fetch``, ``fetch_pinned`` and ``read_flag`` wait for the device: each is
+one ``host.fetch`` or ``host.sync`` span and one ``host_syncs`` count
+(``utils/tracing``).  ``fetch`` copies into pageable memory;
+``fetch_pinned`` copies a tensor into a pinned block of the same caching
+host allocator, then once more into a fresh numpy array, so the block goes
+back to the cache, and the next call of that size takes it again without
+a new ``cudaHostAlloc``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,26 @@ def fetch(*tensors: torch.Tensor):
     tracing.count("d2h_bytes", sum(a.nbytes for a in out))
     tracing.count("host_syncs")
     return out
+
+
+def fetch_pinned(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a fresh host numpy array: on a card one asynchronous
+    copy into a pinned block and one wait, in one ``host.fetch`` span
+    (counts its bytes as ``d2h_bytes`` and one ``host_syncs``), then one
+    host copy out of the block into fresh memory, outside the span (torch's
+    copy, on its threads: the fresh pages' first touch and the copy split
+    between them).  The result aliases no memory that a later call
+    reuses."""
+    pinned = t.device.type == "cuda"
+    host = (torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if pinned
+            else t)
+    with tracing.span("host.fetch"):
+        if pinned:
+            host.copy_(t, non_blocking=True)
+            torch.cuda.current_stream(t.device).synchronize()
+    tracing.count("d2h_bytes", host.nbytes)
+    tracing.count("host_syncs")
+    return torch.empty(host.shape, dtype=host.dtype).copy_(host).numpy()
 
 
 def read_flag(t: torch.Tensor) -> bool:

@@ -17,6 +17,7 @@ both row layouts and one-class, reset, random and palette rows; K3 and K6
 on their edge cases (selfcheck.COMPACT_CASES, LOGFILL_CASES), K3 twice in
 a row, without a torch scan and refusing short status words; and the
 latency probe behind the replay chain bound against its plain loop.
+G1 against its plain version at the serving corpus's shapes.
 ServingCodec over the committed real corpus, PackedDecoder and
 PackedEncoder on lanes of several streams, the api's torch backend and
 one request through the bucketed and serving codecs, against the oracle.
@@ -584,6 +585,46 @@ def test_serving_on_card_matches_oracle(cuda):
     for kernel in ("replay", "place_fill", "replay_summary", "compact",
                    "emit"):
         assert after[kernel] > before[kernel], kernel
+
+
+def test_gather_at_serving_corpus_shapes(cuda, monkeypatch):
+    """G1 on ServingCodec decode of the committed corpus (a packed tier and
+    the split group of photo_china_1080p): one launch a part, each part's
+    call equal to the plain version byte for byte over its whole output
+    from a sentinel, the decode equal to the oracle, one fetch of exactly
+    the bytes returned and gather_px its pixels."""
+    from qoipp_tpu_torch.models.serving import ServingCodec
+    from qoipp_tpu_torch.ops import gather_kernel
+    from qoipp_tpu_torch.utils import tracing
+
+    names, blobs, descs, raws = _real_corpus()
+    codec = ServingCodec(device=cuda)
+    plan = codec.decode_dispatch(blobs)
+    parts = len(plan[1]) + len(plan[2])
+    assert len(plan[1]) >= 1 and len(plan[2]) == 1
+    calls, real = [], gather_kernel.gather_pixels
+
+    def spy(src, table, out, table_dev=None):
+        calls.append((src, table, out.numel()))
+        return real(src, table, out, table_dev)
+
+    monkeypatch.setattr(gather_kernel, "gather_pixels", spy)
+    before = kernels.launch_counts()["gather_pixels"]
+    with tracing.collect() as tr:
+        got = codec.decode_finish(plan)
+    monkeypatch.undo()  # gather_err below calls the wrapper itself
+    assert kernels.launch_counts()["gather_pixels"] == before + parts
+    assert len(calls) == parts
+    for name, g, raw in zip(names, got, raws):
+        assert np.array_equal(g, raw), name
+    cnt = {k: v for (_, k), v in tr.counters.items()}
+    assert cnt["gather_px"] == sum(d.width * d.height for d in descs)
+    assert cnt["d2h_bytes"] == sum(r.nbytes for r in raws)
+    assert sum(s.name == "host.fetch" for s in tr.spans) == 1
+    for src, table, nbytes in calls:
+        before = kernels.launch_counts()["gather_pixels"]
+        assert selfcheck.gather_err(src, table, nbytes) == 0
+        assert kernels.launch_counts()["gather_pixels"] == before + 1
 
 
 def test_packed_lanes_on_card_match_oracle(cuda):

@@ -256,25 +256,24 @@ def test_batch_counters_equal_what_moves():
 
 
 def test_serving_decode_counters_equal_what_it_returns():
-    _, _, blobs = _tiles()
+    raws, descs, blobs = _tiles()
     c = _codec()
-    fetched = []
     with tracing.collect() as tr:
         disp = c.decode_dispatch_staged(c.decode_stage(blobs))
-        n, packed_parts, split_parts = disp
-        for _, (dev, _, _) in packed_parts:
-            fetched.append(dev.numel() * dev.element_size())
-        for _, (dev, _, _, _) in split_parts:
-            fetched.append(dev.numel() * dev.element_size())
-        c.decode_finish(disp)
+        _, packed_parts, split_parts = disp
+        outs = c.decode_finish(disp)
     cnt = {k: v for (_, k), v in tr.counters.items()}
     rounds = sum(p[1][3] for p in split_parts)
-    assert split_parts and rounds >= 1
+    assert packed_parts and split_parts and rounds >= 1
     assert cnt["split_rounds"] == rounds
-    assert cnt["d2h_bytes"] == sum(fetched)
+    # exactly the bytes returned cross: no padded slot, no empty lane
+    assert cnt["d2h_bytes"] == sum(o.nbytes for o in outs) == sum(
+        r.nbytes for r in raws)
+    assert cnt["gather_px"] == sum(d.width * d.height for d in descs)
     syncs = sum(s.name in ("host.fetch", "host.sync") for s in tr.spans)
     assert cnt["host_syncs"] == syncs
-    assert syncs == len(fetched) + rounds  # a fetch a part, a read a round
+    assert sum(s.name == "host.fetch" for s in tr.spans) == 1
+    assert syncs == 1 + rounds  # one fetch a call, a read a round
     assert sum(s.name == "decode.replay" for s in tr.spans) == (
         rounds + len(packed_parts))
 
