@@ -6,7 +6,8 @@ lane pay the batch's longest stream (its replay depth qb) and its worst
 encode caps, so one dense image can tax every lane of a mixed batch.
 ``BucketedCodec`` groups streams into geometric length buckets, runs each
 bucket's batch at its own qb and reassembles the results in submission
-order.
+order: on the host (``decode``) or into one tensor on the device
+(``decode_to_device``).
 """
 
 from __future__ import annotations
@@ -14,12 +15,14 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..common import Channels, Desc
 from ..convert import resolve_device
+from ..utils import tracing
 from ..utils.transfer import fetch, upload
 from .packed import _as_arrays
-from .pipeline import BatchPipeline, _unpack_images
+from .pipeline import BatchPipeline
 
 # Batch-count pad grid: steps of at most 1.5x from 1, so a bucket's zero
 # padding is at most half its images (a third below 17).
@@ -78,10 +81,15 @@ class BucketedCodec:
     def prepare(self, blobs: Sequence) -> List[Tuple[List[int], BatchPipeline,
                                                      object, object]]:
         """Host staging: group the streams into buckets, pack each group
-        and upload it.  Returns [(indices, pipe, streams, sizes)]."""
+        and upload it.  Returns [(indices, pipe, streams, sizes)].  Counts
+        ``bucket_streams`` (the real streams), ``bucket_lanes`` (the padded
+        batches), ``bucket_rows`` (the region bytes the buckets replay,
+        lanes x qb) and ``bucket_stream_bytes`` (the real streams' bytes)."""
         arrs = _as_arrays(blobs)
+        with tracing.span("host.route"):
+            groups = self._group([a.size for a in arrs])
         out = []
-        for bucket_len, idxs in self._group([a.size for a in arrs]).items():
+        for bucket_len, idxs in groups.items():
             pipe = self._pipe(bucket_len)
             bp = _pad_b(len(idxs))
             group = [arrs[i] for i in idxs]
@@ -90,6 +98,10 @@ class BucketedCodec:
             streams, sizes = pipe.pack_streams(group)
             out.append((idxs, pipe, upload(streams, self.device),
                         upload(sizes, self.device)))
+            tracing.count("bucket_lanes", bp)
+            tracing.count("bucket_rows", bp * pipe.qb)
+        tracing.count("bucket_streams", len(arrs))
+        tracing.count("bucket_stream_bytes", sum(a.size for a in arrs))
         return out
 
     def decode_prepared(self, plan) -> List[Tuple[List[int], object]]:
@@ -98,18 +110,32 @@ class BucketedCodec:
         return [(idxs, pipe.decode_packed(streams, sizes))
                 for idxs, pipe, streams, sizes in plan]
 
+    def decode_to_device(self, blobs: Sequence,
+                         target: Optional[Channels] = None) -> torch.Tensor:
+        """QOI byte streams (the shared geometry, any lengths) -> (B, H, W,
+        C) uint8 on the codec's device, submission order.  Each bucket's
+        real images go into the one output by a device index copy; nothing
+        is fetched and nothing waits on the device."""
+        ch = int(target) if target is not None else int(self.desc.channels)
+        out = torch.empty((len(blobs), self.desc.height, self.desc.width, ch),
+                          dtype=torch.uint8, device=self.device)
+        for idxs, pipe, streams, sizes in self.prepare(blobs):
+            imgs = pipe.decode(streams, sizes, target)
+            # the bucket's positions in the output: copied without a wait,
+            # and not among the uploads of stream data
+            index = torch.tensor(idxs, dtype=torch.int64)
+            if self.device.type == "cuda":
+                index = index.pin_memory().to(self.device, non_blocking=True)
+            with tracing.span("decode.assemble"):
+                out.index_copy_(0, index, imgs[: len(idxs)])
+        return out
+
     def decode(self, blobs: Sequence, target: Optional[Channels] = None
                ) -> np.ndarray:
         """QOI byte streams (the shared geometry, any lengths) -> (B, H, W,
-        C) uint8 on the host, submission order."""
-        ch = int(target) if target is not None else int(self.desc.channels)
-        out = np.empty((len(blobs), self.desc.height, self.desc.width, ch),
-                       np.uint8)
-        for idxs, pipe, streams, sizes in self.prepare(blobs):
-            packed = pipe.decode_packed(streams, sizes)[:, : pipe.n_px]
-            (imgs,) = fetch(_unpack_images(packed, self.desc.height,
-                                           self.desc.width, ch))
-            out[idxs] = imgs[: len(idxs)]
+        C) uint8 on the host, submission order: ``decode_to_device`` and
+        one fetch."""
+        (out,) = fetch(self.decode_to_device(blobs, target))
         return out
 
     # -- encode -----------------------------------------------------------

@@ -32,8 +32,13 @@ around it.  Counters: ``h2d_bytes``, ``h2d_pageable_bytes``,
 ``d2h_bytes``, ``host_syncs``, ``split_rounds``, ``packed_recodes``,
 ``template_rows``, ``fields_rows``, ``boundary_scans`` and
 ``boundary_scan_bytes`` (the chunk-start scan's launches and the region
-bytes they read), and ``gather_px`` (the pixels the decodes' gather wrote,
-``ops/gather_kernel``).
+bytes they read), ``gather_px`` (the pixels the decodes' gather wrote,
+``ops/gather_kernel``), and the length buckets' ``bucket_streams``,
+``bucket_lanes``, ``bucket_rows`` and ``bucket_stream_bytes``
+(``models/scheduler.BucketedCodec.prepare``: the real streams, the padded
+lanes, the region bytes the lanes replay, the real streams' bytes).
+``decode.assemble`` is the bucketed decode's index copy of each bucket's
+images into its one output.
 """
 
 from __future__ import annotations

@@ -20,7 +20,9 @@ latency probe behind the replay chain bound against its plain loop.
 G1 against its plain version at the serving corpus's shapes.
 ServingCodec over the committed real corpus, PackedDecoder and
 PackedEncoder on lanes of several streams, the api's torch backend and
-one request through the bucketed and serving codecs, against the oracle.
+one request through the bucketed and serving codecs, against the oracle;
+the bucketed decode into one card tensor on two 4K frames, a photo
+mosaic's lane at qb 16,777,216 among them.
 The parallel layer as a job of 4 ranks on the one card (gloo, the
 exchange staged through host memory): dp decode and encode, sp decode
 (the adversarial INDEX stream too) and sp encode of
@@ -696,6 +698,30 @@ def test_single_request_engines_on_card(cuda):
     serving = ServingCodec(split_min_bytes=1 << 12, device=cuda)
     assert np.array_equal(serving.decode(blobs)[0], raws[0])
     assert np.array_equal(serving.encode(raws, [desc])[0], blobs[0])
+
+
+def test_bucketed_resident_decode_at_4k(cuda):
+    """decode_to_device at its defaults on two 3840 x 2160 RGB frames, the
+    photo mosaic first: a 2 x 2 mosaic of photo_china_1080p with flipped
+    tiles (~11.3 MB, the 16 MiB bucket: B1, K1 and K2 on a lane of qb
+    16,777,216) and a generator frame (the 1 MiB bucket); both frames on
+    the card in submission order, equal to their own pixels."""
+    from qoipp_tpu_torch.models.scheduler import BucketedCodec
+
+    desc, (flat,), (flat_blob,) = make_corpus(1, 3840, 2160, seed=1)
+    data = np.fromfile(CORPUS_DIR / "photo_china_1080p.qoi", np.uint8)
+    d = oracle.read_header(data)
+    tile = oracle.decode(data, d, d.channels).reshape(d.height, d.width, 3)
+    photo = np.concatenate([
+        np.concatenate([tile[:, ::-1], tile[::-1]], axis=1),
+        np.concatenate([tile[::-1, ::-1], tile], axis=1)]).reshape(-1)
+    photo_blob = oracle.encode(photo, desc)[0]
+    codec = BucketedCodec(desc, device=cuda)
+    out = codec.decode_to_device([photo_blob, flat_blob])
+    assert out.device.type == "cuda" and out.shape == (2, 2160, 3840, 3)
+    assert sorted(p.qb for p in codec._pipes.values()) == [1 << 20, 1 << 24]
+    for got, want in zip(out, (photo, flat)):
+        assert torch.equal(got.reshape(-1), torch.from_numpy(want).to(cuda))
 
 
 @pytest.mark.parametrize("module,name,argv", [
