@@ -29,6 +29,7 @@ from ..ops import replay_kernel as rk
 from ..ops.bitops import packed_to_pixels, pixels_to_packed
 from ..ops.encode import _round_up
 from ..utils import tracing
+from ..utils.transfer import pinned_owner
 
 
 class BatchPipeline:
@@ -77,13 +78,17 @@ class BatchPipeline:
             device=self.device)
 
     def _to_device(self, x, dtype):
-        t = torch.as_tensor(x)
         if isinstance(x, torch.Tensor) and (x.device.type != "cpu"
                                             or self.device.type == "cpu"):
-            return t.to(device=self.device, dtype=dtype)
-        # a host array: a plain (pageable) copy
+            return x.to(device=self.device, dtype=dtype)
+        pinned = pinned_owner(x) if self.device.type == "cuda" else None
+        t = torch.as_tensor(x) if pinned is None else pinned
         with tracing.span("host.upload"):
             tracing.count("h2d_bytes", t.nbytes)
+            if pinned is not None:  # pack_streams' block: one async copy
+                return t.to(device=self.device, dtype=dtype,
+                            non_blocking=True)
+            # a pageable host array: a plain copy
             tracing.count("h2d_pageable_bytes", t.nbytes)
             return t.to(device=self.device, dtype=dtype)
 
@@ -192,22 +197,43 @@ class BatchPipeline:
 
     @tracing.traced("host.pack_streams")
     def pack_streams(self, blobs) -> Tuple[np.ndarray, np.ndarray]:
-        """List of qoi byte strings/arrays -> ((B, l_cap) u8, (B,) i32)."""
+        """List of qoi byte strings/arrays -> ((B, l_cap) u8, (B,) i32).
+
+        On a card both arrays view pinned blocks of PyTorch's caching host
+        allocator (counted as ``pack_pinned_bytes``): a block handed out
+        again has its pages in place, and ``_to_device`` and
+        ``utils/transfer.upload`` copy from it to the card without another
+        host copy.  The arrays keep their blocks while they live."""
         b = len(blobs)
-        out = np.zeros((b, self.l_cap), dtype=np.uint8)
-        sizes = np.zeros(b, dtype=np.int32)
-        for i, blob in enumerate(blobs):
-            arr = np.frombuffer(bytes(blob), np.uint8) if not isinstance(
-                blob, np.ndarray
-            ) else blob
-            if arr.size > self.l_cap:
-                raise ValueError(
-                    f"stream {i}: {arr.size} bytes exceeds pipeline l_cap "
-                    f"{self.l_cap}"
-                )
-            out[i, : arr.size] = arr
-            sizes[i] = arr.size
+        if self.device.type == "cuda":
+            out = torch.empty((b, self.l_cap), dtype=torch.uint8,
+                              pin_memory=True).numpy()
+            sizes = torch.empty(b, dtype=torch.int32, pin_memory=True).numpy()
+            tracing.count("pack_pinned_bytes", out.nbytes + sizes.nbytes)
+        else:
+            out = np.zeros((b, self.l_cap), dtype=np.uint8)
+            sizes = np.zeros(b, dtype=np.int32)
+        pack_into(out, sizes, blobs)
         return out, sizes
+
+
+def pack_into(out: np.ndarray, sizes: np.ndarray, blobs) -> None:
+    """Write each stream into its row of ``out`` (B, l_cap) u8, zero the
+    row past it, and its length into ``sizes`` (B,): every byte of both is
+    written, whatever they held before."""
+    l_cap = out.shape[1]
+    for i, blob in enumerate(blobs):
+        arr = np.frombuffer(bytes(blob), np.uint8) if not isinstance(
+            blob, np.ndarray
+        ) else blob
+        if arr.size > l_cap:
+            raise ValueError(
+                f"stream {i}: {arr.size} bytes exceeds pipeline l_cap "
+                f"{l_cap}"
+            )
+        out[i, : arr.size] = arr
+        out[i, arr.size :] = 0
+        sizes[i] = arr.size
 
 
 def _unpack_images(packed, height: int, width: int, channels: int):

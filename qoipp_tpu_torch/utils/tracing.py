@@ -36,7 +36,9 @@ bytes they read), ``gather_px`` (the pixels the decodes' gather wrote,
 ``ops/gather_kernel``), and the length buckets' ``bucket_streams``,
 ``bucket_lanes``, ``bucket_rows`` and ``bucket_stream_bytes``
 (``models/scheduler.BucketedCodec.prepare``: the real streams, the padded
-lanes, the region bytes the lanes replay, the real streams' bytes).
+lanes, the region bytes the lanes replay, the real streams' bytes), and
+``pack_pinned_bytes`` (the bytes ``BatchPipeline.pack_streams`` wrote into
+pinned blocks, on a card).
 ``decode.assemble`` is the bucketed decode's index copy of each bucket's
 images into its one output.
 """

@@ -7,7 +7,9 @@ so the host goes on planning while the copy runs and the copy overlaps
 what the card is computing.  PyTorch's caching host allocator records the
 copy's stream against the pinned block and hands the block out again only
 after the copy has finished, so the pinned tensor may be dropped once the
-copy is issued.  On the CPU the array is wrapped without a copy.
+copy is issued; an array that already views such a block (``pinned_owner``)
+is copied from it as it is.  On the CPU the array is wrapped without a
+copy.
 
 ``fetch``, ``fetch_pinned`` and ``read_flag`` wait for the device: each is
 one ``host.fetch`` or ``host.sync`` span and one ``host_syncs`` count
@@ -20,21 +22,50 @@ a new ``cudaHostAlloc``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from . import tracing
 
 
+def pinned_owner(x) -> Optional[torch.Tensor]:
+    """The pinned host tensor that ``x`` is, or whose whole storage the
+    numpy array ``x`` views as ``Tensor.numpy()`` gives it
+    (``BatchPipeline.pack_streams``' outputs on a card); None for anything
+    else.  A copy issued from it records its stream on the tensor's block
+    of the caching host allocator; one issued from ``torch.from_numpy(x)``
+    may not, since that tensor does not own the block."""
+    t = x
+    if isinstance(x, np.ndarray):
+        t = x.base
+        if not (isinstance(t, torch.Tensor)
+                and t.data_ptr() == x.ctypes.data):
+            return None
+        v = t.numpy()
+        if (v.dtype, v.shape, v.strides) != (x.dtype, x.shape, x.strides):
+            return None
+    if not (isinstance(t, torch.Tensor) and t.device.type == "cpu"
+            and t.is_pinned()):
+        return None
+    return t
+
+
 @tracing.traced("host.upload")
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A numpy array as a tensor on ``device``, copied asynchronously from
-    pinned memory where the device is a card.  Counts ``h2d_bytes``."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    pinned memory where the device is a card: from the array's own block
+    where it views one (``pinned_owner``), else from a pinned copy of it.
+    Counts ``h2d_bytes``."""
+    card = device.type == "cuda"
+    t = pinned_owner(arr) if card else None
+    if t is None:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if card:
+            t = t.pin_memory()
     tracing.count("h2d_bytes", t.nbytes)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device, non_blocking=card)
 
 
 def fetch(*tensors: torch.Tensor):

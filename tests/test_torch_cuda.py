@@ -22,7 +22,10 @@ ServingCodec over the committed real corpus, PackedDecoder and
 PackedEncoder on lanes of several streams, the api's torch backend and
 one request through the bucketed and serving codecs, against the oracle;
 the bucketed decode into one card tensor on two 4K frames, a photo
-mosaic's lane at qb 16,777,216 among them.
+mosaic's lane at qb 16,777,216 among them, and on a mixed-length batch
+against its fetched decode.  pack_streams' pinned block, not handed out
+again while a copy queued behind a sleep still reads it, and a traced
+batch decode uploading exactly the pinned bytes, none pageable.
 The parallel layer as a job of 4 ranks on the one card (gloo, the
 exchange staged through host memory): dp decode and encode, sp decode
 (the adversarial INDEX stream too) and sp encode of
@@ -722,6 +725,92 @@ def test_bucketed_resident_decode_at_4k(cuda):
     assert sorted(p.qb for p in codec._pipes.values()) == [1 << 20, 1 << 24]
     for got, want in zip(out, (photo, flat)):
         assert torch.equal(got.reshape(-1), torch.from_numpy(want).to(cuda))
+
+
+def test_pinned_pack_block_not_reused_while_its_copy_runs(cuda):
+    """pack_streams' pinned block goes back to the caching host allocator
+    when its arrays die, but not to a new pack while the copy that reads
+    it waits on the stream: batch A is packed, its decode queued behind a
+    ~0.1 s sleep and its arrays dropped; batch B, of other streams, is
+    packed into another block at once and decoded. Both decode to their
+    own pixels; after a synchronise a third pack takes one of the two
+    blocks again."""
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+
+    desc, raws_a, blobs_a = make_corpus(8, 320, 200, seed=3)
+    _, raws_b, blobs_b = make_corpus(8, 320, 200, seed=4)
+    pipe = BatchPipeline(desc, max_stream_len=max(
+        x.size for x in blobs_a + blobs_b), device=cuda)
+    outs, blocks = [], []
+    for blobs in (blobs_a, blobs_b):
+        streams, sizes = pipe.pack_streams(blobs)
+        blocks.append(streams.ctypes.data)
+        if not outs:
+            torch.cuda._sleep(200_000_000)
+        outs.append(pipe.decode(streams, sizes))
+        del streams, sizes
+    assert blocks[0] != blocks[1]
+    torch.cuda.synchronize()
+    for out, raws in zip(outs, (raws_a, raws_b)):
+        want = torch.from_numpy(np.stack(raws)).to(cuda)
+        assert torch.equal(out.reshape(want.shape), want)
+    streams, _ = pipe.pack_streams(blobs_a)
+    assert streams.ctypes.data in blocks
+
+
+def test_batch_decode_uploads_from_the_pinned_pack(cuda):
+    """A traced batch decode counts the pinned bytes pack_streams wrote,
+    uploads exactly them, and makes no pageable upload."""
+    from qoipp_tpu_torch.models.pipeline import BatchPipeline
+    from qoipp_tpu_torch.utils import tracing
+
+    desc, raws, blobs = make_corpus(4, 320, 200, seed=5)
+    pipe = BatchPipeline(desc, max_stream_len=max(x.size for x in blobs),
+                         device=cuda)
+    with tracing.collect() as tr:
+        streams, sizes = pipe.pack_streams(blobs)
+        out = pipe.decode(streams, sizes)
+    torch.cuda.synchronize()
+    c = {k: v for (_, k), v in tr.counters.items()}
+    assert streams.base.is_pinned() and sizes.base.is_pinned()
+    assert c["pack_pinned_bytes"] == streams.nbytes + sizes.nbytes
+    assert c["h2d_bytes"] == streams.nbytes + sizes.nbytes
+    assert c.get("h2d_pageable_bytes", 0) == 0
+    want = torch.from_numpy(np.stack(raws)).to(cuda)
+    assert torch.equal(out.reshape(want.shape), want)
+
+
+def test_bucketed_decode_of_mixed_lengths_on_card(cuda):
+    """decode_to_device over buckets of flat frames and photo crops
+    (five flat frames take six lanes: a header-only padding lane), each
+    bucket packed into a pinned block and uploaded from it, equals
+    decode (fetched) and the oracle, in submission order."""
+    from qoipp_tpu_torch.models.scheduler import BucketedCodec
+    from qoipp_tpu_torch.utils import tracing
+
+    w, h = 96, 54
+    desc, flats, _ = make_corpus(5, w, h, seed=7)
+    data = np.fromfile(CORPUS_DIR / "photo_china_1080p.qoi", np.uint8)
+    d = oracle.read_header(data)
+    photo = oracle.decode(data, d, d.channels).reshape(d.height, d.width, 3)
+    crops = [np.ascontiguousarray(photo[y: y + h, x: x + w]).reshape(-1)
+             for y, x in ((400, 800), (600, 200), (800, 600))]
+    raws = [flats[0], crops[0], *flats[1:3], crops[1], *flats[3:], crops[2]]
+    blobs = [oracle.encode(r, desc)[0] for r in raws]
+    codec = BucketedCodec(desc, min_len=1 << 11, device=cuda)
+    with tracing.collect() as tr:
+        out = codec.decode_to_device(blobs)
+    torch.cuda.synchronize()
+    c = {k: v for (_, k), v in tr.counters.items()}
+    assert len(codec._pipes) == 2 and c["bucket_lanes"] == 6 + 3
+    assert c["pack_pinned_bytes"] == c["h2d_bytes"]
+    assert c.get("h2d_pageable_bytes", 0) == 0
+    host = codec.decode(blobs)
+    assert np.array_equal(out.cpu().numpy(), host)
+    for i, raw in enumerate(raws):
+        assert np.array_equal(host[i].reshape(-1), raw), i
+        assert np.array_equal(raw, oracle.decode(blobs[i], desc,
+                                                 desc.channels)), i
 
 
 @pytest.mark.parametrize("module,name,argv", [

@@ -1,7 +1,8 @@
 """The port's BatchPipeline (on CPU: every kernel's plain version) against
 qoipp_tpu's BatchPipeline and the native oracle, bit-exact: synthetic RGB
 and RGBA corpora, the golden and truncated fixtures, a crafted stream,
-channel conversion and the encode-overflow flag."""
+channel conversion and the encode-overflow flag; the stream packing over
+destinations that hold other bytes against a fresh zeroed pack."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +207,62 @@ def test_encode_overflow_flag():
     assert np.array_equal(out[2].numpy(), np.asarray(jout)[2])
     with pytest.raises(ValueError, match="encode overflow"):
         tight.encode(raws)
+
+
+def _fresh_pack(blobs, l_cap):
+    """The packing as a fresh zeroed plane: each stream copied into its
+    row, the rest left zero."""
+    out = np.zeros((len(blobs), l_cap), np.uint8)
+    for i, blob in enumerate(blobs):
+        out[i, : blob.size] = blob
+    return out, np.array([b.size for b in blobs], np.int32)
+
+
+# batch: a mixed-length corpus; the same with header-only padding lanes
+# (as BucketedCodec.prepare pads a bucket); one stream over l_cap
+PACK_BATCHES = ("mixed", "header_padded", "overflow")
+
+
+@pytest.mark.parametrize("dest", ["ff", "longer_batch"])
+@pytest.mark.parametrize("batch", PACK_BATCHES)
+def test_pack_into_used_destination_matches_fresh_pack(batch, dest):
+    """pack_into writes every byte of a destination that holds anything
+    (a card's pinned block handed out again), so it gives byte for byte
+    the fresh zeroed pack; the CPU pipeline's pack_streams gives the same
+    as numpy arrays that torch.from_numpy takes."""
+    from qoipp_tpu_torch.models.pipeline import pack_into
+
+    desc, _, blobs = make_corpus(5, 96, 64, seed=5)
+    blobs = [b[: b.size - 40 * i] for i, b in enumerate(blobs)]  # mixed
+    pipe = BatchPipeline(desc, max_stream_len=max(b.size for b in blobs),
+                         device="cpu")
+    if batch == "header_padded":
+        blobs = blobs[:3] + [blobs[0][:14]] * 3
+    elif batch == "overflow":
+        blobs[2] = np.zeros(pipe.l_cap + 1, np.uint8)
+    assert len({b.size for b in blobs}) > 1
+    b = len(blobs)
+    out = np.full((b, pipe.l_cap), 0xFF, np.uint8)
+    sizes = np.full(b, -1, np.int32)
+    if dest == "longer_batch":
+        rng = np.random.default_rng(3)
+        longer = [rng.integers(1, 256, pipe.l_cap - i, dtype=np.uint8)
+                  for i in range(b)]
+        pack_into(out, sizes, longer)
+        assert out[:, : pipe.l_cap - b].all()
+        assert (sizes > pipe.l_cap - b).all()
+    if batch == "overflow":
+        with pytest.raises(ValueError, match="exceeds pipeline l_cap"):
+            pack_into(out, sizes, blobs)
+        with pytest.raises(ValueError, match="exceeds pipeline l_cap"):
+            pipe.pack_streams(blobs)
+        return
+    want, want_sizes = _fresh_pack(blobs, pipe.l_cap)
+    pack_into(out, sizes, blobs)
+    assert np.array_equal(out, want) and np.array_equal(sizes, want_sizes)
+    streams, got_sizes = pipe.pack_streams(blobs)
+    assert type(streams) is np.ndarray and type(got_sizes) is np.ndarray
+    assert streams.dtype == np.uint8 and got_sizes.dtype == np.int32
+    assert torch.equal(torch.from_numpy(streams), torch.from_numpy(want))
+    assert torch.equal(torch.from_numpy(got_sizes),
+                       torch.from_numpy(want_sizes))
