@@ -168,12 +168,15 @@ class BatchPipeline:
     def raw_to_packed(self, raws):
         """(B, n_px*C) uint8 -> (B, nb) int32 pixel words, zero past
         n_px: the encoder's input."""
-        packed = pixels_to_packed(self._to_device(raws, torch.uint8),
-                                  self.channels)
-        pad = self.nb - self.n_px
-        if pad:
-            packed = torch.nn.functional.pad(packed, (0, pad))
-        return packed
+        raws = self._to_device(raws, torch.uint8)
+        with tracing.span("encode.pack"):
+            tracing.count("pack_px", raws.shape[0] * self.n_px)
+            tracing.count("pack_bytes", raws.numel())
+            packed = pixels_to_packed(raws, self.channels)
+            pad = self.nb - self.n_px
+            if pad:
+                packed = torch.nn.functional.pad(packed, (0, pad))
+            return packed
 
     def encode_raw_checked(self, raws):
         """(B, n_px*C) uint8 -> (streams, lengths, ok): pixel packing,
@@ -238,5 +241,7 @@ def pack_into(out: np.ndarray, sizes: np.ndarray, blobs) -> None:
 
 def _unpack_images(packed, height: int, width: int, channels: int):
     with tracing.span("decode.unpack"):
+        tracing.count("unpack_px", packed.numel())
+        tracing.count("unpack_bytes", packed.numel() * channels)
         return packed_to_pixels(packed, channels).reshape(
             packed.shape[0], height, width, channels)

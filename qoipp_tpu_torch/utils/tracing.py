@@ -38,9 +38,15 @@ bytes they read), ``gather_px`` (the pixels the decodes' gather wrote,
 (``models/scheduler.BucketedCodec.prepare``: the real streams, the padded
 lanes, the region bytes the lanes replay, the real streams' bytes), and
 ``pack_pinned_bytes`` (the bytes ``BatchPipeline.pack_streams`` wrote into
-pinned blocks, on a card).
+pinned blocks, on a card), ``pack_px`` and ``pack_bytes`` (the pixels
+``BatchPipeline.raw_to_packed`` packs into words and the raw bytes it
+reads), and ``unpack_px`` and ``unpack_bytes`` (the pixels a batch decode
+unpacks from words, padded lanes included, and the bytes it writes, the
+target's channels a pixel).
 ``decode.assemble`` is the bucketed decode's index copy of each bucket's
-images into its one output.
+images into its one output; ``encode.pack`` is ``raw_to_packed``'s
+packing and its pad to the encoder's tile, and ``decode.unpack`` the
+batch decode's unpacking of words into pixels.
 """
 
 from __future__ import annotations
